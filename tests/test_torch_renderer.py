@@ -1,0 +1,197 @@
+"""PyTorch port: the Cornell slice end to end.
+
+The port's ``Renderer`` on the CPU is held against the JAX ``Renderer`` and
+against the independent NumPy tracer (tests/reference_tracer.py) under the
+golden contract ``_compare`` of tests/test_golden_cornell.py.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tests import reference_tracer as ref
+from tests.test_golden_cornell import _compare
+import vrenderer_pathtracer_tpu as jvpt
+from vrenderer_pathtracer_tpu.core.camera import generate_rays as j_generate_rays
+from vrenderer_pathtracer_tpu.core.camera import pixel_ids as j_pixel_ids
+from vrenderer_pathtracer_tpu.render.integrator import render_pass as j_render_pass
+import vrenderer_pathtracer_tpu_torch as vpt
+from vrenderer_pathtracer_tpu_torch import interop
+from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+
+CORNELL = dict(use_cornell_box=True, has_hdr=False)
+MOVED = dict(origin=(5.0, -3.0, 120.0), yaw=0.2, pitch=-0.1, fov_deg=60.0)
+
+
+def _port(w, h, **kw):
+    return vpt.Renderer(w, h, settings=vpt.RenderSettings(**CORNELL, **kw),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("move", [{}, MOVED])
+def test_renderer_matches_jax_renderer(move):
+    kw = dict(samples_per_pass=2, bounces=4)
+    j = jvpt.Renderer(48, 32, settings=jvpt.RenderSettings(**CORNELL, **kw))
+    t = _port(48, 32, **kw)
+    if move:
+        j.update_camera(**move)
+        t.update_camera(**move)
+    jimg, jdepth = j.render_frames(3)
+    timg, tdepth = t.render_frames(3)
+    assert timg.shape == (32, 48, 3) and tdepth.shape == (32, 48)
+    assert t.get_frame_count() == j.get_frame_count() == 4
+    _compare(timg, tdepth, np.asarray(jimg), np.asarray(jdepth))
+
+
+@pytest.mark.parametrize("w,h,spp,bounces,frames,camera", [
+    (16, 16, 4, 2, 2, None),
+    (12, 12, 2, 2, 2, MOVED),
+])
+def test_renderer_matches_reference_tracer(w, h, spp, bounces, frames, camera):
+    r = _port(w, h, samples_per_pass=spp, bounces=bounces)
+    if camera:
+        r.update_camera(**camera)
+    img, depth = r.render_frames(frames)
+    eimg, edepth = ref.render_image(w, h, spp_per_frame=spp, frames=frames,
+                                    bounces=bounces, use_cornell=True,
+                                    camera=camera)
+    _compare(img, depth, eimg, edepth)
+
+
+def test_frame_counting_clear_buffer_and_current_frame():
+    r = _port(8, 8, samples_per_pass=2, bounces=2)
+    assert r.get_frame_count() == 1 and r.samples_per_pixel == 0
+    img1, _ = r.render()
+    img2, depth2 = r.render()
+    assert r.get_frame_count() == 3 and r.samples_per_pixel == 4
+    shown, shown_depth = r.current_frame()
+    assert torch.equal(shown, img2) and torch.equal(shown_depth, depth2)
+    assert r.get_frame_count() == 3  # displaying does not advance
+    r.clear_buffer()
+    assert r.get_frame_count() == 1
+    assert torch.count_nonzero(r._accum) == 0
+    again, _ = r.render()
+    assert torch.equal(again, img1)  # frame 1 again: the same draws
+    r.update_camera(yaw=0.1)
+    assert r.get_frame_count() == 1
+    r.use_cornell_box(True)
+    assert r.get_frame_count() == 1
+
+
+def test_fresnel_sliders_change_image_and_reset():
+    r = _port(32, 32, samples_per_pass=4, bounces=3)
+    a, _ = r.render_frames(1)
+    r.set_fresnel_power(1.0)
+    assert r.get_frame_count() == 1
+    b, _ = r.render_frames(1)
+    r.set_fresnel_coef(0.9)
+    c, _ = r.render_frames(1)
+    assert np.abs(a - b).max() > 1e-3 and np.abs(b - c).max() > 1e-3
+
+
+def test_sync_render_records_stats():
+    r = _port(8, 8, samples_per_pass=2, bounces=4)
+    assert "no synced frame" in r.hud_line()
+    r.render(sync=True)
+    st = r.last_stats
+    assert st.rays_per_pass == 8 * 8 * 2 * 4 and st.seconds_per_pass > 0
+    assert "Mrays/s" in r.hud_line() and "2 spp" in r.hud_line()
+
+
+@pytest.mark.parametrize("call", [
+    lambda r: r.load_hdr(np.zeros((4, 8, 3), np.float32)),
+    lambda r: r.load_texture(np.zeros((4, 4, 3), np.float32)),
+    lambda r: r.load_brdf(np.zeros((3, 8), np.float32)),
+    lambda r: r.init_mesh(None),
+    lambda r: r.load_mesh("mesh.obj"),
+    lambda r: r.use_brdf(True),
+    lambda r: r.use_example_sphere(True),
+    lambda r: r.use_cornell_box(False),
+    lambda r: r.toggle_fxaa(True),
+])
+def test_unported_methods_raise(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(_port(4, 4))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(settings=vpt.RenderSettings(has_hdr=False)),
+    dict(settings=vpt.RenderSettings(use_fxaa=True, **CORNELL)),
+    dict(settings=vpt.RenderSettings(**CORNELL), device_mesh=object()),
+])
+def test_unported_constructor_options_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        vpt.Renderer(4, 4, device="cpu", **kw)
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        vpt.Renderer(4, 4, settings=vpt.RenderSettings(**CORNELL),
+                     device="cuda")
+
+
+def test_radiance_request_must_match_device():
+    with pytest.raises(ValueError):
+        vpt.Renderer(4, 4, settings=vpt.RenderSettings(
+            radiance_kernel="cuda", **CORNELL), device="cpu")
+
+
+def test_interop_scene_renders_like_jax():
+    """A JAX scene, camera and sliders, converted, render the same image;
+    the scene is edited first so the conversion carries real data."""
+    js = jvpt.RenderSettings(width=32, height=16, samples_per_pass=2,
+                             bounces=3, **CORNELL)
+    jscene = jvpt.Scene.analytic(js)
+    sph = jscene.spheres._replace(
+        color=jscene.spheres.color.at[7].set(jnp.array([0.9, 0.2, 0.1])),
+        emission=jscene.spheres.emission.at[6].set(jnp.array([0.5, 0.5, 2.0])))
+    jscene = jscene._replace(spheres=sph)
+    jcam = jvpt.Camera.default()._replace(yaw=jnp.float32(0.15))
+    fc, fp = jnp.float32(0.3), jnp.float32(2.0)
+    ray_o, ray_d = j_generate_rays(jcam, 32, 16)
+    want = j_render_pass(jscene, js, ray_o, ray_d, j_pixel_ids(32, 16),
+                         jnp.uint32(2), fc, fp)
+
+    scene = interop.scene_from_numpy(
+        {k: np.asarray(v) for k, v in sph._asdict().items()}, device="cpu")
+    cam = interop.camera_from_numpy(
+        {k: np.asarray(v) for k, v in jcam._asdict().items()}, device="cpu")
+    tfc, tfp = interop.sliders_from_numpy(fc, fp, device="cpu")
+    assert scene.spheres.refl.dtype == torch.int32
+    ts = vpt.RenderSettings(width=32, height=16, samples_per_pass=2,
+                            bounces=3, **CORNELL)
+    rgb, depth = k1.render_pass_cuda(scene, ts, cam, 2, tfc, tfp)
+    d = np.abs(rgb.numpy() - np.asarray(want[0]))
+    assert (d > 1e-5).mean() < 0.01
+    assert np.abs(depth.numpy() - np.asarray(want[1])).max() < 1e-3
+    default, _ = k1.render_pass_reference(
+        vpt.Scene.analytic(ts, "cpu"), ts, cam, 2, tfc, tfp)
+    assert (rgb - default).abs().max() > 1e-2
+
+
+def test_package_never_imports_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "import vrenderer_pathtracer_tpu_torch as v\n"
+        "r = v.Renderer(8, 8, settings=v.RenderSettings(use_cornell_box=True,"
+        " has_hdr=False), device='cpu')\n"
+        "img, depth = r.render_frames(1)\n"
+        "assert img.shape == (8, 8, 3)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('vrenderer_pathtracer_tpu.')"
+        " or m == 'vrenderer_pathtracer_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    root = str(__import__("pathlib").Path(__file__).resolve().parent.parent)
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env={"PYTHONPATH": root, "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,72 @@
+"""Static render configuration (PyTorch port).
+
+Same fields, names and defaults as ``vrenderer_pathtracer_tpu/config.py``,
+kept as a separate copy because importing the JAX package imports jax.  In
+the port the settings select code paths at call time (PyTorch runs
+eagerly); nothing is recompiled when they change.
+
+Fields that belong to parts of the JAX package not ported yet (mesh
+traversal, compact bounce waves, textures, MERL importance sampling) are
+kept so a settings object can be handed from one package to the other;
+the port raises ``NotImplementedError`` where one of them asks for a path it
+does not have.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Hashable static render settings.
+
+    * ``width/height``     — framebuffer size
+    * ``samples_per_pass`` — samples per pixel per progressive pass
+    * ``bounces``          — fixed bounce budget
+    * ``use_cornell_box``  — Cornell walls + light; a miss kills the path
+    * ``use_example_sphere`` / ``use_brdf`` / ``has_*`` — scene feature flags
+    * ``gamma``            — display gamma
+    * ``depth_scale``      — depth normalisation (first-hit distance / 150)
+    * ``radiance_kernel``  — forward backend: ``"auto"`` resolves in
+      ``scene.settings_for_scene`` to ``"cuda"`` (hand-written kernel,
+      ``render/cuda_radiance.py``) for CUDA-resident Cornell scenes, or
+      ``"torch"`` (plain integrator) for CPU-resident scenes.
+    """
+
+    width: int = 512
+    height: int = 512
+    samples_per_pass: int = 2
+    bounces: int = 4
+    use_cornell_box: bool = False
+    use_example_sphere: bool = False
+    use_brdf: bool = False
+    has_diffuse_map: bool = False
+    has_normal_map: bool = False
+    has_specular_map: bool = False
+    has_brdf: bool = False
+    has_mesh: bool = False
+    has_hdr: bool = True
+    use_fxaa: bool = False
+    traversal: str = "auto"
+    remat_bounces: bool = False
+    sort_rays: bool = False
+    bounce_block_rows: int = 0
+    captured_attrs: bool = False
+    pre_tiled: bool = False
+    radiance_kernel: str = "auto"
+    brdf_importance_sampling: bool = False
+    compact_waves: bool = False
+    compact_capacity_frac: float = 0.125
+    compact_mode: str = "cond"
+    texture_filter: str = "nearest"
+    gamma: float = 2.2
+    depth_scale: float = 150.0
+    samples_per_chunk: int = 0  # 0 => all samples in one chunk
+
+    def replace(self, **kw) -> "RenderSettings":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def n_pixels(self) -> int:
+        return self.width * self.height

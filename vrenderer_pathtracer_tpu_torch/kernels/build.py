@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each library is one ``csrc/<name>.cu`` with a plain C entry point, compiled
+for Hopper (``sm_90a``) at first use into ``_build/`` (git-ignored) under a
+file name keyed by a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is reused.  Nothing is built at import.
+
+No ``--use_fast_math``: the kernels keep IEEE division and square root so
+they stay comparable with their plain PyTorch versions.
+
+Usage:  python -m vrenderer_pathtracer_tpu_torch.kernels.build [name ...]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+PACKAGE = pathlib.Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default prefix.  Raises if there is none."""
+    candidates = [os.path.join(os.environ[v], "bin", "nvcc")
+                  for v in ("CUDA_HOME", "CUDA_PATH") if v in os.environ]
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _sources(name: str) -> list[pathlib.Path]:
+    src = CSRC / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(src)
+    return [src, *sorted(CSRC.glob("*.cuh"))]
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(name):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, verbose: bool = False) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless a library from the same sources
+    exists.  Returns the library path; raises with nvcc's output on a
+    failed build."""
+    lib = library_path(name)
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(" ".join(cmd))
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load the library; one handle per process."""
+    return ctypes.CDLL(str(build(name)))
+
+
+if __name__ == "__main__":
+    for n in sys.argv[1:] or ["radiance"]:
+        print(f"built {build(n, verbose=True)}")
