@@ -5,17 +5,41 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card: print ``nvidia-smi``'s name and power limit.
-2. Build: compile K1 (``vrenderer_pathtracer_tpu_torch/csrc/radiance.cu``)
-   from the sources with ``nvcc``; print the seconds and ptxas' report.
-3. Kernel vs plain: K1 against its plain PyTorch version on the card at
+2. Build: compile K1 (``csrc/radiance.cu``) and K2 (``csrc/grad.cu``) of
+   ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
+   started together; print the seconds and ptxas' report (registers, spills
+   and stack of every kernel instance).
+3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
    ``Renderer`` on the CPU at 64x32.
-4. Main path: ``Renderer(1024, 1024, device="cuda")`` for 1 warm-up and 10
+4. Render path: ``Renderer(1024, 1024)`` on the card for 1 warm-up and 10
    timed passes; K1's launch count must rise by one per pass; the image must
    be finite and of plausible Cornell brightness.
-5. Times per pass at 1024x1024 from CUDA events: K1 alone, its wrapper
+5. K1 times per pass at 1024x1024 from CUDA events: K1 alone, its wrapper
    (table packing + K1) and the plain version.
+6. K2 vs plain on a well-conditioned scene (the rows of
+   tests/test_pallas_grad.py::_benign_scene) at 64x32, 2 spp, 4 bounces, at
+   the first frame where K1 and its plain version agree on every rgb
+   element to 1e-5: material gradients at two slider pairs and camera
+   gradients, at the tolerances of tests/test_pallas_grad.py.
+7. K2 at 1024x1024 on the Cornell scene: K2's loss against the L2 loss of
+   K1's own image, and against the plain version's within the difference
+   of the two images' losses; each gradient leaf's relative error, and the
+   gradient norm's, against the plain version, under a limit that planted
+   faults (wrong rows, swapped leaves, a flipped sign, a dropped Fresnel
+   term) must exceed; two launches on the same inputs bit-identical.
+8. Training path: ``opt_step`` with Adam (lr 0.1) on the sphere emission
+   for 12 steps at 1024x1024 towards a K1 image with the light 1.5x
+   brighter; K2's launch count must rise by one per step, the plain
+   integrator must never run, and the loss must halve.
+9. K2 times per loss + gradient step at 1024x1024 from CUDA events: K2
+   alone, the ``cornell_loss`` wrapper (packing + K2 + backward) and the
+   plain autograd version; ``train_step``'s wall time on the host clock.
+10. Where the time goes: a ``torch.profiler`` trace of 20 render passes
+   and 20 ``train_step`` calls (device busy time, idle share, top kernels).
+11. Bounds: the least time the card could take for each kernel's work on
+   this run's inputs (see ``bound``).
 
 The last lines are the kernel table as one JSON object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -25,6 +49,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,7 +59,8 @@ import torch
 
 WIDTH = HEIGHT = 1024
 PASSES = 10
-# Parity contract of the kernel against its plain version (two differently
+STEPS = 12
+# Parity contract of K1 against its plain version (two differently
 # compiled programs flip discrete branches on grazing rays): fewer than 1%
 # of rgb elements off by more than 1e-5, and depth within 1e-3.  At the full
 # 1024x1024 a flipped Cornell kill can land on a pixel of the last sample
@@ -42,6 +68,52 @@ PASSES = 10
 # of 1M), so there depth is held to the outlier form of the repo's golden
 # contract instead: fewer than 1% of pixels off by more than 1e-3.
 RGB_ATOL, OUTLIER_FRAC, DEPTH_ATOL = 1e-5, 0.01, 1e-3
+# K2 at 1024x1024 on the Cornell scene, against its plain version: the
+# r = 1e5 walls flip hit/miss on a few grazing rays between any two
+# programs (K1 against the plain forward: 0.063% of rgb elements, each by up
+# to a whole path's radiance, 8.3 at most), and a flipped path moves every
+# sum it feeds.  K1 and K2 trace with the same device code
+# (csrc/common.cuh), so K2's loss and the L2 loss of K1's image agree to
+# float32 summation order (K1_LOSS_RTOL).  Each gradient leaf is held to
+# |K2 - plain| / |plain| <= GRAD_RTOL, the gradient rtol of
+# tests/test_pallas_grad.py.  Measured on an H100: the flip-driven readings
+# are at most 0.39% (dcolor), and the weakest planted fault of
+# _planted_faults reads 5.9% (demission rows of the side walls swapped).
+K1_LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-2
+GRAD_LEAVES = ("dcolor", "demission", "dfresnel_coef", "dfresnel_pow")
+
+# The well-conditioned scene of tests/test_pallas_grad.py::_benign_scene:
+# (radius, pos, emission, color, refl, spec_color); refl 0 = SPEC, 1 = DIFF.
+BENIGN = [
+    (20.0, (0.0, 45.0, 0.0), (4.0, 3.6, 3.2), (0, 0, 0), 1, (0, 0, 0)),
+    (60.0, (95.0, 0.0, 0.0), (0.075, 0.025, 0.025), (0.75, 0.25, 0.25), 1, (0, 0, 0)),
+    (60.0, (-95.0, 0.0, 0.0), (0.025, 0.075, 0.025), (0.25, 0.75, 0.25), 1, (0, 0, 0)),
+    (60.0, (0.0, 0.0, -120.0), (0, 0, 0), (1, 1, 1), 1, (0, 0, 0)),
+    (60.0, (0.0, -95.0, 0.0), (0, 0, 0), (0.9, 0.9, 0.9), 1, (0, 0, 0)),
+    (12.0, (18.0, -5.0, 20.0), (0, 0, 0), (0, 0, 0), 0, (1, 1, 1)),
+    (12.0, (-18.0, -5.0, 20.0), (0, 0, 0), (1, 1, 1), 1, (1, 1, 1)),
+]
+
+# Peak issue rates of an H100 SXM at its 1.98 GHz boost clock: FP32 67
+# TFLOP/s (an FMA is 2 flops; NVIDIA's data sheet), and 64 INT32 and 16 SFU
+# (sqrt/rcp/lg2/ex2, int-to-float) results per clock per SM on 132 SMs (the
+# CUDA C++ Programming Guide's throughput table, compute capability 9.0);
+# device memory 3.35 TB/s.
+RATES = {"fp32": 67e12, "int32": 132 * 64 * 1.98e9, "sfu": 132 * 16 * 1.98e9}
+HBM_BYTES_PER_S = 3.35e12
+# Operations per live (sample, bounce) step, counted from the sources: the
+# forward step of csrc/common.cuh (nearest_sphere + scatter: per sphere 17
+# round-to-nearest flops, an IEEE sqrt as one SFU op and 6 flops of
+# refinement, 6 compares and selects; then the hit point, four
+# normalisations with IEEE division, precise sincosf and powf as their
+# libdevice polynomials, two 20-round threefry blocks as 32-bit integer
+# adds, rotates and xors), and K2's material reverse step of csrc/grad.cu
+# (a log and a few divisions).  K2 keeps its records, so it too runs one
+# forward pass.
+FWD_STEP = {"fp32": 280, "fp32_per_sphere": 29, "sfu": 17, "sfu_per_sphere": 1,
+            "int32": 155}
+REV_STEP = {"fp32": 70, "sfu": 3}
 
 
 def _compare(name, got, want, depth_outliers=False):
@@ -63,14 +135,144 @@ def _compare(name, got, want, depth_outliers=False):
     return d.max().item()
 
 
+def _benign_scene(dev):
+    from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+    from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    return Scene(spheres=SphereSet(
+        pos=torch.tensor([r[1] for r in BENIGN], **f32),
+        radius=torch.tensor([r[0] for r in BENIGN], **f32),
+        emission=torch.tensor([r[2] for r in BENIGN], **f32),
+        color=torch.tensor([r[3] for r in BENIGN], **f32),
+        refl=torch.tensor([r[4] for r in BENIGN], dtype=torch.int32, device=dev),
+        spec_color=torch.tensor([r[5] for r in BENIGN], **f32)))
+
+
+def _close(name, got, want, rtol, atol):
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    print(f"    {name}: max abs err {err.max().item():.4g}"
+          f" (|want| max {want.abs().max().item():.4g}) {'ok' if ok else 'FAIL'}")
+    assert ok, f"{name}: {got.tolist()} vs {want.tolist()}"
+    return err.max().item()
+
+
+def _leaf_errors(grads, want):
+    """|got - want| / |want| (2-norms) for each of the GRAD_LEAVES."""
+    return {name: ((g.double() - w.double()).norm() / w.double().norm()).item()
+            for name, g, w in zip(GRAD_LEAVES, grads, want)}
+
+
+def _planted_faults(grads):
+    """K2's gradients as a wrong kernel would return them, one fault each:
+    rows written to the wrong sphere, leaves swapped, a flipped sign, a
+    dropped Fresnel term.  None changes the loss."""
+    col, em, fc, fp = grads
+    walls = [0, 2, 1, *range(3, col.shape[0])]  # right and left wall swapped
+    return {
+        "dcolor rows of the side walls swapped": (col[walls], em, fc, fp),
+        "dcolor rows off by one": (col.roll(1, 0), em, fc, fp),
+        "demission rows of the side walls swapped": (col, em[walls], fc, fp),
+        "demission rows off by one": (col, em.roll(1, 0), fc, fp),
+        "albedo and emission swapped": (em, col, fc, fp),
+        "sign flipped": (-col, -em, -fc, -fp),
+        "dfresnel_coef zeroed": (col, em, torch.zeros_like(fc), fp),
+        "dfresnel_pow zeroed": (col, em, fc, torch.zeros_like(fp)),
+        "dfresnel_coef and dfresnel_pow swapped": (col, em, fp, fc),
+    }
+
+
+def live_steps(scene, settings, camera, frame, fc, fp, seed=0):
+    """The (sample, bounce) steps the kernels trace for these inputs: a
+    path runs the sphere test at every bounce until its first miss, which
+    ends it.  Returns (sphere-test steps, hit steps), from the plain
+    integrator's own pieces."""
+    from vrenderer_pathtracer_tpu_torch.core import rng
+    from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
+    from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
+    from vrenderer_pathtracer_tpu_torch.render.integrator import _intersect_sphere_set
+
+    ray_o0, ray_d0 = generate_rays(camera, settings.width, settings.height)
+    ids = pixel_ids(settings.width, settings.height, ray_o0.device)
+    tests = hits = 0
+    with torch.no_grad():
+        for s in range(settings.samples_per_pass):
+            o, d = ray_o0, ray_d0
+            alive = torch.ones_like(ids, dtype=torch.bool)
+            sid = torch.full_like(ids, s)
+            for b in range(settings.bounces):
+                tests += int(alive.sum())
+                hd = _intersect_sphere_set(scene, o, d)
+                alive = alive & hd.hit
+                hits += int(alive.sum())
+                u0, _ = rng.uniform2(seed, ids, rng.make_stream(frame, sid, b, 0))
+                u1, u2 = rng.uniform2(seed, ids, rng.make_stream(frame, sid, b, 1))
+                nd, _ = scatter(d, hd.normal, hd.tangent, hd.color,
+                                hd.spec_color, hd.hit_type, u0, u1, u2, fc, fp)
+                a3 = alive[:, None]
+                o = torch.where(a3, hd.point + ORIGIN_OFFSET * hd.normal, o)
+                d = torch.where(a3, nd, d)
+    return tests, hits
+
+
+def bound(n_spheres, tests, hits, n_bytes, reverse=None):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and, per operation type, the operations over the card's peak rate."""
+    ops = {
+        "fp32": tests * FWD_STEP["fp32_per_sphere"] * n_spheres + hits * FWD_STEP["fp32"],
+        "sfu": tests * FWD_STEP["sfu_per_sphere"] * n_spheres + hits * FWD_STEP["sfu"],
+        "int32": hits * FWD_STEP["int32"],
+    }
+    for k, v in (reverse or {}).items():
+        ops[k] += hits * v
+    t_ops = max(ops[k] / RATES[k] for k in ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, ops
+
+
+def device_profile(name, fn, n):
+    """Trace ``n`` calls of ``fn`` with torch.profiler; print the device
+    busy time per call, the host wall per call (profiled), the idle share
+    and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e6
+    # Device-side events only: a CPU op's row repeats its kernels' time.
+    rows = [(e.key, e.self_device_time_total / n, e.count // n)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    if busy == 0:
+        print(f"profile {name}: the trace holds no device time (not measured)")
+        return
+    print(f"profile {name}: device busy {busy:.1f} us/call, host wall "
+          f"{wall:.1f} us/call (profiled), idle share {1 - busy / wall:.1%}, "
+          f"{sum(r[2] for r in rows)} device ops/call")
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:5]:
+        print(f"    {us:9.1f} us  x{count}  {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+    from vrenderer_pathtracer_tpu_torch import (
+        Renderer, RenderSettings, TrainParams, opt_step, train_step)
     from vrenderer_pathtracer_tpu_torch.core.camera import Camera
     from vrenderer_pathtracer_tpu_torch.kernels import build
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
     from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.render import integrator
     from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
     from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
 
@@ -87,10 +289,11 @@ def main() -> int:
 
     # 2. Build.
     t0 = time.perf_counter()
-    lib = build.build("radiance", verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    libs = build.build_all(build.KERNELS, verbose=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+          f"{', '.join(p.name for p in libs.values())}")
 
-    # 3. Kernel vs plain.
+    # 3. K1 vs plain.
     base = RenderSettings(use_cornell_box=True, has_hdr=False)
     cam = Camera.default(dev)
     for w, h, frames in ((256, 256, (1, 3)), (WIDTH, HEIGHT, (1,))):
@@ -100,8 +303,8 @@ def main() -> int:
             got = k1.render_pass_cuda(scene, s, cam, frame, 0.1, 3.0, 0)
             torch.cuda.synchronize()
             want = k1.render_pass_reference(scene, s, cam, frame, 0.1, 3.0, 0)
-            max_err = _compare(f"K1 {w}x{h} frame {frame}", got, want,
-                               depth_outliers=w == WIDTH)
+            k1_err = _compare(f"K1 {w}x{h} frame {frame}", got, want,
+                              depth_outliers=w == WIDTH)
     small = [Renderer(64, 32, settings=base, device=d).render_frames(2)
              for d in (dev, "cpu")]
     img_err = np.abs(small[0][0] - small[1][0])
@@ -110,10 +313,10 @@ def main() -> int:
     assert (img_err > 1e-3).any(axis=-1).mean() <= 0.02
     assert img_err.mean() <= 2e-3
 
-    # 4. Main path.
-    k1.launch.count = 0
-    r = Renderer(WIDTH, HEIGHT, settings=base, device=dev)
-    assert r.settings.radiance_kernel == "cuda", r.settings.radiance_kernel
+    # 4. Render path.
+    r = Renderer(WIDTH, HEIGHT, settings=base)
+    assert r.device.type == "cuda" and r.settings.radiance_kernel == "cuda"
+    k1.launch.count = k2.launch.count = 0
     r.render()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -121,23 +324,24 @@ def main() -> int:
         img, depth = r.render()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / PASSES
-    launches = k1.launch.count
-    assert launches == PASSES + 1, f"K1 launched {launches} times"
+    k1_launches = k1.launch.count
+    assert k1_launches == PASSES + 1, f"K1 launched {k1_launches} times"
+    assert k2.launch.count == 0
     assert r.get_frame_count() == PASSES + 2
     assert img.shape == (HEIGHT, WIDTH, 3) and depth.shape == (HEIGHT, WIDTH)
     assert torch.isfinite(img).all() and torch.isfinite(depth).all()
     mean = img.mean().item()
     assert 0.2 < mean < 0.7, f"implausible Cornell image mean {mean}"
     rays = WIDTH * HEIGHT * base.samples_per_pass * base.bounces
-    print(f"main path: {WIDTH}x{HEIGHT}, {base.samples_per_pass} spp, "
+    print(f"render path: {WIDTH}x{HEIGHT}, {base.samples_per_pass} spp, "
           f"{base.bounces} bounces: {wall * 1e3:.3f} ms/pass wall, "
           f"{rays / wall / 1e6:.1f} Mrays/s, image mean {mean:.4f}, "
-          f"K1 launches {launches}")
+          f"K1 launches {k1_launches}")
 
-    # 5. Times per pass at the main path's shape (CUDA events), in turns:
-    # kernel, wrapper, plain, plain, wrapper, kernel.  The kernel alone runs
-    # on tables packed once; the wrapper also packs them on every pass (a
-    # few dozen small launches the host must enqueue).
+    # 5. K1 times per pass (CUDA events), in turns: kernel, wrapper, plain,
+    # plain, wrapper, kernel.  The kernel alone runs on tables packed once;
+    # the wrapper also packs them on every pass (a few dozen small launches
+    # the host must enqueue).
     s = r.settings
     args = (r.scene, s, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
     tables = (k1.pack_camera(r.camera, s, r.fresnel_coef, r.fresnel_pow),
@@ -149,22 +353,211 @@ def main() -> int:
     t = {name: [] for name in timed}
     for name in ("kernel", "wrapper", "plain", "plain", "wrapper", "kernel"):
         t[name].append(cuda_time_ms(timed[name], dev, iters=iters[name]))
-    ms, wrapper_ms, plain_ms = (sum(v) / len(v) for v in t.values())
+    k1_ms, k1_wrapper_ms, k1_plain_ms = (sum(v) / len(v) for v in t.values())
     for name, v in t.items():
-        print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms/pass "
+        print(f"K1 {name}: {', '.join(f'{x:.4f}' for x in v)} ms/pass "
               f"({rays / (sum(v) / len(v)) / 1e3:.1f} Mrays/s)")
-    print(f"K1 {ms:.4f} ms/pass, wrapper {wrapper_ms:.4f}, plain "
-          f"{plain_ms:.4f}, {card}")
+    print(f"K1 {k1_ms:.4f} ms/pass, wrapper {k1_wrapper_ms:.4f}, plain "
+          f"{k1_plain_ms:.4f}, {card}")
+
+    # 6. K2 vs plain on the well-conditioned scene at a flip-free frame.
+    benign = _benign_scene(dev)
+    k2_err = 0.0
+    sb = base.replace(width=64, height=32, samples_per_pass=2, bounces=4)
+    for frame in range(1, 25):
+        got, _ = k1.render_pass_cuda(benign, sb, cam, frame, 0.1, 3.0)
+        want, _ = k1.render_pass_reference(benign, sb, cam, frame, 0.1, 3.0)
+        if (got - want).abs().max().item() <= 1e-5:
+            break
+    else:
+        raise AssertionError("no flip-free frame in 1..24")
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 0.5, (sb.n_pixels, 3)).astype(np.float32)).to(dev)
+    print(f"K2 vs plain, well-conditioned scene 64x32, frame {frame}:")
+    for fc, fp, with_camera in ((0.1, 3.0, False), (0.4, 1.5, False),
+                                (0.1, 3.0, True)):
+        a = (benign, sb, cam, target, frame, fc, fp, 0, with_camera)
+        got = k2.cornell_loss_grads(*a)
+        torch.cuda.synchronize()
+        want = k2.cornell_loss_grads_reference(*a)
+        print(f"  sliders ({fc}, {fp}), with_camera={with_camera}: loss "
+              f"{got[0].item():.6g} vs {want[0].item():.6g}")
+        rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+        assert rel <= 1e-4, f"loss rel err {rel}"
+        for name, i, rtol, atol in (("dcolor", 1, 1e-2, 2e-4),
+                                    ("demission", 2, 1e-2, 2e-4),
+                                    ("dfresnel_coef", 3, 1e-2, 1e-6),
+                                    ("dfresnel_pow", 4, 1e-2, 1e-6)):
+            k2_err = max(k2_err, _close(name, got[i], want[i], rtol, atol))
+        if with_camera:
+            for name, rtol, atol in (("origin", 2e-2, 2e-6), ("yaw", 2e-2, 1e-5),
+                                     ("pitch", 2e-2, 1e-5),
+                                     ("fov_deg", 2e-2, 1e-6)):
+                k2_err = max(k2_err, _close(f"dcamera.{name}", getattr(got[5], name),
+                                            getattr(want[5], name), rtol, atol))
+
+    # 7. K2 at the full size on the Cornell scene.  The target: the Cornell
+    # image with the light 1.5x brighter, rendered by K1 (frame 1).
+    s = base.replace(width=WIDTH, height=HEIGHT)
+    scene = Scene.analytic(s, dev)
+    bright = scene.spheres.emission.clone()
+    bright[0] *= 1.5
+    target, _ = k1.render_pass_cuda(scene.replace_spheres(emission=bright), s,
+                                    cam, 1, 0.1, 3.0)
+    a = (scene, s, cam, target, 1, 0.1, 3.0)
+    got = k2.cornell_loss_grads(*a)
+    torch.cuda.synchronize()
+    want = k2.cornell_loss_grads_reference(*a)
+    assert all(torch.isfinite(x).all() for x in got[:5])
+    # The loss: K2's is the L2 loss of K1's image, and the plain version's
+    # that of the plain image, so the two differ only as far as the two
+    # forward images do (held by phase 3's contract on this same frame).
+    def l2(rgb):
+        return torch.mean((rgb.double() - target.double()) ** 2).item()
+
+    k1_loss = l2(k1.render_pass_cuda(scene, s, cam, 1, 0.1, 3.0)[0])
+    plain_img_loss = l2(k1.render_pass_reference(scene, s, cam, 1, 0.1, 3.0)[0])
+    k1_rel = abs(got[0].item() - k1_loss) / k1_loss
+    plain_rel = abs(want[0].item() - plain_img_loss) / plain_img_loss
+    loss_rel = abs(got[0].item() - want[0].item()) / want[0].item()
+    image_rel = abs(k1_loss - plain_img_loss) / want[0].item()
+    print(f"K2 {WIDTH}x{HEIGHT} Cornell: loss {got[0].item():.7g}, plain "
+          f"{want[0].item():.7g} (rel err {loss_rel:.4g}; the two images' "
+          f"losses differ by {image_rel:.4g}); K2 vs the L2 loss of K1's "
+          f"image {k1_rel:.3g}, plain vs the plain image's {plain_rel:.3g}")
+    assert k1_rel <= K1_LOSS_RTOL and plain_rel <= K1_LOSS_RTOL
+    assert loss_rel <= image_rel + 2 * K1_LOSS_RTOL
+    # The gradients, leaf by leaf, against limits that the planted faults
+    # must exceed: each is a wrong kernel that keeps the loss.  The norm of
+    # the whole gradient vector is held to the same rtol.
+    grad_err = _leaf_errors(got[1:5], want[1:5])
+    flat = [torch.cat([x.reshape(-1) for x in out[1:5]]).double()
+            for out in (got, want)]
+    norm_rel = abs(flat[0].norm() - flat[1].norm()).item() / flat[1].norm().item()
+    print(f"  gradient rel err |K2 - plain| / |plain| (limit {GRAD_RTOL}): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in grad_err.items())
+          + f"; gradient-norm rel err {norm_rel:.4g}")
+    assert norm_rel <= GRAD_RTOL, f"K2 gradient-norm rel err {norm_rel}"
+    planted = {name: _leaf_errors(grads, want[1:5])
+               for name, grads in _planted_faults(got[1:5]).items()}
+    for name, err in planted.items():
+        print(f"  planted fault, {name}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in err.items()))
+    for k, v in grad_err.items():
+        assert v <= GRAD_RTOL, f"K2 {k} rel err {v} > {GRAD_RTOL}"
+    for name, err in planted.items():
+        assert max(err.values()) > GRAD_RTOL, f"{name} passes the check"
+    packed = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres),
+              s, target, 1, 0)
+    for with_camera in (False, True):
+        p1 = k2.launch(*packed, with_camera=with_camera)
+        p2 = k2.launch(*packed, with_camera=with_camera)
+        assert torch.equal(p1, p2), "K2 launches differ"
+    print("K2 repeat launches bit-identical (with and without camera)")
+
+    # 8. Training path: Adam on the emission, through opt_step and K2 only.
+    params = TrainParams.from_scene(scene)
+    params.emission.requires_grad_()
+    step = opt_step(s, torch.optim.Adam([params.emission], lr=0.1))
+    plain_pass = integrator.render_pass
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("the plain integrator ran on the training path")
+
+    integrator.render_pass = no_plain
+    k1.launch.count = k2.launch.count = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        params, metrics = step(params, scene, cam, target, 1)
+        losses.append(metrics["loss"].item())
+        assert k2.launch.count == i + 1, f"K2 launched {k2.launch.count} times"
+    train_wall = (time.perf_counter() - t0) / STEPS
+    k2_launches = k2.launch.count
+    integrator.render_pass = plain_pass
+    assert k1.launch.count == 0
+    assert all(math.isfinite(x) for x in losses)
+    print(f"training path: {STEPS} Adam steps at {WIDTH}x{HEIGHT}: loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}, K2 launches {k2_launches}, "
+          f"{train_wall * 1e3:.3f} ms/step wall (loss read every step)")
+    assert losses[-1] < 0.5 * losses[0], losses
+
+    # 9. K2 times per loss + gradient step (CUDA events), in turns.
+    fwdbwd_rays = 2 * rays
+    p = TrainParams.from_scene(scene)
+    leaves = [x.requires_grad_() for x in p.leaves()]
+
+    def wrapper():
+        loss = k2.cornell_loss(p, scene, s, cam, target, 1)
+        torch.autograd.grad(loss, leaves)
+
+    timed = {"kernel": lambda: k2.launch(*packed),
+             "wrapper": wrapper,
+             "plain": lambda: k2.cornell_loss_grads_reference(*a)}
+    iters = {"kernel": 20, "wrapper": 20, "plain": 3}
+    t = {name: [] for name in timed}
+    for name in ("kernel", "wrapper", "plain", "plain", "wrapper", "kernel"):
+        t[name].append(cuda_time_ms(timed[name], dev, iters=iters[name]))
+    k2_ms, k2_wrapper_ms, k2_plain_ms = (sum(v) / len(v) for v in t.values())
+    for name, v in t.items():
+        print(f"K2 {name}: {', '.join(f'{x:.4f}' for x in v)} ms/step "
+              f"({fwdbwd_rays / (sum(v) / len(v)) / 1e3:.1f} Mrays/s)")
+    sgd = train_step(s)
+    p = TrainParams.from_scene(scene)
+    p, _ = sgd(p, scene, cam, target, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PASSES):
+        p, loss = sgd(p, scene, cam, target, 1)
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) / PASSES
+    print(f"K2 {k2_ms:.4f} ms/step, wrapper {k2_wrapper_ms:.4f}, plain "
+          f"{k2_plain_ms:.4f}, train_step {step_wall * 1e3:.4f} ms wall "
+          f"({fwdbwd_rays / step_wall / 1e6:.1f} Mrays/s), {card}")
+
+    # 10. Where the time goes: torch.profiler over both paths.
+    device_profile("render pass", r.render, 20)
+    device_profile("train_step", lambda: sgd(p, scene, cam, target, 1), 20)
+
+    # 11. Bounds on this run's inputs (frame 1, default sliders).
+    tests, hits = live_steps(scene, s, cam, 1, 0.1, 3.0)
+    ns, npx = scene.spheres.count, s.n_pixels
+    k1_bound = bound(ns, tests, hits, npx * 16)
+    k2_bytes = npx * 12 + 4 * (-(-npx // 128)) * k2.n_partials(ns, False)
+    k2_bound = bound(ns, tests, hits, k2_bytes, reverse=REV_STEP)
+    print(f"live steps at frame 1: {tests} sphere-test steps, {hits} hit "
+          f"steps of {npx * s.samples_per_pass * s.bounces}")
+    for name, (b_ms, by, ops), ms in (("K1", k1_bound, k1_ms), ("K2", k2_bound, k2_ms)):
+        print(f"{name} bound {b_ms:.4f} ms ({by}; ops {ops}), measured "
+              f"{ms:.4f} ms = {b_ms / ms:.1%} of bound")
 
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
         "route": "cuda",
         "source": "vrenderer_pathtracer_tpu_torch/csrc/radiance.cu",
         "replaces": "vrenderer_pathtracer_tpu/render/pallas_radiance.py:212",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "K2 loss + gradients",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/grad.cu",
+        "replaces": "vrenderer_pathtracer_tpu/render/pallas_grad.py:216",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "loss_rel_err_1024": loss_rel,
+        "grad_rel_err_1024": grad_err,
+        "grad_norm_rel_err_1024": norm_rel,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,18 @@
-"""PyTorch port on the card: K1 against its plain version, the Renderer on
-CUDA, and the failure paths of the build and the dispatch.
+"""PyTorch port on the card: K1 and K2 against their plain versions, the
+Renderer and the train steps on CUDA, and the failure paths of the build
+and the dispatch.
 
 Every test here needs a CUDA device (and ``nvcc``) and skips without one.
 The file imports no jax, so on a machine with a card it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Contract of the kernel against the plain version (two differently compiled
+Contract of K1 against the plain version (two differently compiled
 programs flip discrete branches on grazing rays): fewer than 1% of rgb
-elements off by more than 1e-5, and depth within 1e-3.
+elements off by more than 1e-5, and depth within 1e-3.  K2 is held to the
+gradient tolerances of tests/test_pallas_grad.py on that file's
+well-conditioned scene, at a frame where K1 and its plain version agree on
+every rgb element (a flipped branch moves the sums by a whole path).
 """
 
 import numpy as np
@@ -17,6 +21,7 @@ import torch
 
 import vrenderer_pathtracer_tpu_torch as vpt
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
 from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene, settings_for_scene
 
@@ -101,4 +106,165 @@ def test_failed_build_raises(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build("radiance")
+    assert not list(tmp_path.iterdir())
+
+
+# tests/test_pallas_grad.py::_benign_scene, rows (radius, pos, emission,
+# color, refl, spec_color); this file imports no jax.
+BENIGN = [
+    (20.0, (0.0, 45.0, 0.0), (4.0, 3.6, 3.2), (0, 0, 0), 1, (0, 0, 0)),
+    (60.0, (95.0, 0.0, 0.0), (0.075, 0.025, 0.025), (0.75, 0.25, 0.25), 1, (0, 0, 0)),
+    (60.0, (-95.0, 0.0, 0.0), (0.025, 0.075, 0.025), (0.25, 0.75, 0.25), 1, (0, 0, 0)),
+    (60.0, (0.0, 0.0, -120.0), (0, 0, 0), (1, 1, 1), 1, (0, 0, 0)),
+    (60.0, (0.0, -95.0, 0.0), (0, 0, 0), (0.9, 0.9, 0.9), 1, (0, 0, 0)),
+    (12.0, (18.0, -5.0, 20.0), (0, 0, 0), (0, 0, 0), 0, (1, 1, 1)),
+    (12.0, (-18.0, -5.0, 20.0), (0, 0, 0), (1, 1, 1), 1, (1, 1, 1)),
+]
+GRAD = dict(width=64, height=32, samples_per_pass=2, bounces=4, **CORNELL)
+
+
+def _benign(device):
+    from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return Scene(spheres=SphereSet(
+        pos=torch.tensor([r[1] for r in BENIGN], **f32),
+        radius=torch.tensor([r[0] for r in BENIGN], **f32),
+        emission=torch.tensor([r[2] for r in BENIGN], **f32),
+        color=torch.tensor([r[3] for r in BENIGN], **f32),
+        refl=torch.tensor([r[4] for r in BENIGN], dtype=torch.int32,
+                          device=device),
+        spec_color=torch.tensor([r[5] for r in BENIGN], **f32)))
+
+
+def _grad_case(device, **kw):
+    """Benign scene, settings, camera, target and a flip-free frame."""
+    s = vpt.RenderSettings(**dict(GRAD, **kw))
+    scene, cam = _benign(device), Camera.default(device)
+    for frame in range(1, 25):
+        got, _ = k1.render_pass_cuda(scene, s, cam, frame, 0.1, 3.0)
+        want, _ = k1.render_pass_reference(scene, s, cam, frame, 0.1, 3.0)
+        if (got - want).abs().max().item() <= 1e-5:
+            break
+    else:
+        pytest.fail("no flip-free frame in 1..24")
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 0.5, (s.n_pixels, 3)).astype(np.float32)).to(device)
+    return scene, s, cam, target, frame
+
+
+@pytest.fixture
+def grad_case(cuda):
+    return _grad_case(cuda)
+
+
+def _assert_k2_matches_plain(args):
+    got = k2.cornell_loss_grads(*args)
+    torch.cuda.synchronize()
+    want = k2.cornell_loss_grads_reference(*args)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
+    for i, atol in ((1, 2e-4), (2, 2e-4), (3, 1e-6), (4, 1e-6)):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-2, atol=atol)
+    return got, want
+
+
+@pytest.mark.parametrize("with_camera", [False, True])
+@pytest.mark.parametrize("sliders", [(0.1, 3.0), (0.4, 1.5)])
+def test_k2_matches_plain(grad_case, sliders, with_camera):
+    scene, s, cam, target, frame = grad_case
+    args = (scene, s, cam, target, frame, *sliders, 0, with_camera)
+    before = k2.launch.count
+    got, want = _assert_k2_matches_plain(args)
+    assert k2.launch.count == before + 1
+    if with_camera:
+        for f, atol in (("origin", 2e-6), ("yaw", 1e-5), ("pitch", 1e-5),
+                        ("fov_deg", 1e-6)):
+            torch.testing.assert_close(getattr(got[5], f), getattr(want[5], f),
+                                       rtol=2e-2, atol=atol)
+        base = k2.cornell_loss_grads(*args[:-1], False)
+        for a, b in zip(got[:5], base):
+            assert torch.equal(a, b)
+
+
+def test_k2_repeat_launches_bit_identical(grad_case):
+    scene, s, cam, target, frame = grad_case
+    tables = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres))
+    for with_camera in (False, True):
+        before = k2.launch.count
+        a = k2.launch(*tables, s, target, frame, 0, with_camera)
+        b = k2.launch(*tables, s, target, frame, 0, with_camera)
+        assert k2.launch.count == before + 2
+        assert a.shape == (s.n_pixels // 128, k2.n_partials(7, with_camera))
+        assert torch.equal(a, b)
+
+
+def test_k2_odd_size_and_loss_matches_k1(cuda):
+    """A frame that is no multiple of the block: the threads past it add
+    nothing, and K2's loss is the L2 loss of K1's own image."""
+    s = vpt.RenderSettings(**dict(GRAD, width=37, height=11))
+    scene, cam = Scene.analytic(s, cuda), Camera.default(cuda)
+    target = torch.full((s.n_pixels, 3), 0.25, device=cuda)
+    loss = k2.cornell_loss_grads(scene, s, cam, target, 2, 0.1, 3.0)[0]
+    rgb, _ = k1.render_pass_cuda(scene, s, cam, 2, 0.1, 3.0)
+    want = torch.mean((rgb.double() - target.double()) ** 2)
+    torch.testing.assert_close(loss.double(), want, rtol=1e-5, atol=0.0)
+
+
+def test_cuda_tensors_never_take_plain_grads(cuda, grad_case, monkeypatch):
+    scene, s, cam, target, frame = grad_case
+
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(k2, "cornell_loss_grads_reference", refuse)
+    monkeypatch.setattr(k2, "_plain_loss", refuse)
+    before = k2.launch.count
+    k2.cornell_loss_grads(scene, s, cam, target, frame, 0.1, 3.0)
+    params = vpt.TrainParams.from_scene(scene)
+    params.color.requires_grad_()
+    loss = k2.cornell_loss(params, scene, s, cam, target, frame)
+    (2.0 * loss).backward()
+    assert k2.launch.count == before + 2
+    want = k2.cornell_loss_grads(scene, s, cam, target, frame, 0.1, 3.0)[1]
+    assert torch.equal(params.color.grad, 2.0 * want)
+    with pytest.raises(NotImplementedError):
+        k2.cornell_loss_grads(scene, s.replace(has_hdr=True), cam, target,
+                              frame, 0.1, 3.0)
+    with pytest.raises(NotImplementedError):  # 20 records, above the 16 kept
+        k2.cornell_loss_grads(scene, s.replace(samples_per_pass=5), cam, target,
+                              frame, 0.1, 3.0)
+    assert k2.launch.count == before + 3  # the refused calls launched nothing
+    with pytest.raises(ValueError):
+        k2.cornell_loss_grads(scene, s, cam, target.cpu(), frame, 0.1, 3.0)
+
+
+def test_train_steps_on_card(cuda):
+    s = vpt.RenderSettings(**dict(GRAD, width=32, height=32))
+    scene, cam = Scene.analytic(s, cuda), Camera.default(cuda)
+    bright = scene.spheres.emission.clone()
+    bright[0] *= 1.5
+    target, _ = k1.render_pass_cuda(scene.replace_spheres(emission=bright), s,
+                                    cam, 1, 0.1, 3.0)
+    params = vpt.TrainParams.from_scene(scene)
+    params.emission.requires_grad_()
+    step = vpt.opt_step(s, torch.optim.Adam([params.emission], lr=0.1))
+    before = k2.launch.count
+    losses = [step(params, scene, cam, target, 1)[1]["loss"].item()
+              for _ in range(12)]
+    assert k2.launch.count == before + 12
+    assert losses[-1] < 0.5 * losses[0], losses
+    sgd = vpt.train_step(s, with_metrics=True)
+    new, metrics = sgd(vpt.TrainParams.from_scene(scene, camera=cam), scene,
+                       cam, target, 1)
+    assert new.camera is not None and new.emission.is_cuda
+    assert np.isfinite(metrics["grad_global_norm"].item())
+
+
+def test_failed_grad_build_raises(cuda, monkeypatch, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
+    with pytest.raises(RuntimeError, match="nvcc failed for grad"):
+        build.build_all(["radiance", "grad"])
     assert not list(tmp_path.iterdir())

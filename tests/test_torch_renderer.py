@@ -134,6 +134,8 @@ def test_cuda_device_without_card_raises():
     with pytest.raises(RuntimeError):
         vpt.Renderer(4, 4, settings=vpt.RenderSettings(**CORNELL),
                      device="cuda")
+    with pytest.raises(RuntimeError):  # the card is the default
+        vpt.Renderer(4, 4, settings=vpt.RenderSettings(**CORNELL))
 
 
 def test_radiance_request_must_match_device():
@@ -183,6 +185,10 @@ def test_package_never_imports_jax(tmp_path):
         " has_hdr=False), device='cpu')\n"
         "img, depth = r.render_frames(1)\n"
         "assert img.shape == (8, 8, 3)\n"
+        "p = v.TrainParams.from_scene(r.scene)\n"
+        "step = v.train_step(r.settings, device='cpu')\n"
+        "p2, loss = step(p, r.scene, r.camera, 0.5 * r._accum, 1)\n"
+        "assert float(loss) > 0 and not p2.emission.equal(p.emission)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('vrenderer_pathtracer_tpu.')"
         " or m == 'vrenderer_pathtracer_tpu']\n"

@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each library is one ``csrc/<name>.cu`` with a plain C entry point, compiled
-for Hopper (``sm_90a``) at first use into ``_build/`` (git-ignored) under a
-file name keyed by a hash of the sources and flags, so an edited source
-builds anew and an unchanged one is reused.  Nothing is built at import.
+Each library is one ``csrc/<name>.cu`` (plus the shared ``*.cuh``) with a
+plain C entry point, compiled for Hopper (``sm_90a``) at first use into
+``_build/`` (git-ignored) under a file name keyed by a hash of the sources
+and flags, so an edited source builds anew and an unchanged one is reused.
+Nothing is built at import.  ``build_all`` starts one ``nvcc`` per source
+at once.
 
 No ``--use_fast_math``: the kernels keep IEEE division and square root so
 they stay comparable with their plain PyTorch versions.
@@ -25,6 +27,7 @@ import sys
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
+KERNELS = ("radiance", "grad")  # csrc/<name>.cu: K1, K2
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,26 +65,43 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def build_all(names, verbose: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` for each name whose library from the same
+    sources does not exist yet, one ``nvcc`` process per source, all started
+    together.  Returns ``{name: library path}``; raises with nvcc's output
+    if any build fails."""
+    libs = {name: library_path(name) for name in names}
+    jobs = []
+    for name, lib in libs.items():
+        if lib.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, lib, tmp, cmd, proc))
+    failed = []
+    for name, lib, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{out}")
+            continue
+        if verbose:
+            print(" ".join(cmd))
+            print(out)
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(name: str, verbose: bool = False) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless a library from the same sources
     exists.  Returns the library path; raises with nvcc's output on a
     failed build."""
-    lib = library_path(name)
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(" ".join(cmd))
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    return lib
+    return build_all([name], verbose)[name]
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,5 +111,5 @@ def load(name: str) -> ctypes.CDLL:
 
 
 if __name__ == "__main__":
-    for n in sys.argv[1:] or ["radiance"]:
-        print(f"built {build(n, verbose=True)}")
+    for n, lib in build_all(sys.argv[1:] or KERNELS, verbose=True).items():
+        print(f"built {n}: {lib}")

@@ -1,0 +1,250 @@
+"""K2, the Cornell loss + gradient kernel: wrapper, autograd Function and
+plain version.
+
+Port of ``vrenderer_pathtracer_tpu/render/pallas_grad.py``.  The kernel
+itself is hand-written CUDA C++ in ``csrc/grad.cu``; its header says what it
+computes and what bounds it on the card.  The loss is the L2 train loss of
+one progressive pass, ``sum((rgb - target)**2) / (N*3)`` (the JAX
+package's ``parallel/sharding.py`` loss on one device).  This module:
+
+* ``cornell_loss_grads_reference`` — the plain version: torch autograd of
+  ``generate_rays`` + ``integrator.render_pass`` under that loss;
+* ``launch`` — K2 on packed tables, returning its per-block partials;
+  ``launch.count`` counts kernel launches;
+* ``cornell_loss_grads`` — the wrapper.  CPU tensors take the plain
+  version; CUDA tensors launch K2 (built at first use) or raise;
+* ``CornellLoss`` / ``cornell_loss`` — the loss as an autograd node:
+  ``cornell_loss(params, ...).backward()`` fills ``.grad`` of each
+  ``TrainParams`` leaf that requires it, through K2 on the card and plain
+  autograd on the CPU.
+
+Every gradient function returns ``(loss, dcolor [Ns,3], demission [Ns,3],
+dfresnel_coef, dfresnel_pow)`` and, with ``with_camera``, a sixth element:
+a ``Camera`` whose leaves are the gradients with respect to ``origin``,
+``yaw``, ``pitch`` and ``fov_deg``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from vrenderer_pathtracer_tpu_torch.config import RenderSettings
+from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+from vrenderer_pathtracer_tpu_torch.render import cuda_radiance
+from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
+    pack_camera, pack_spheres, render_pass_reference)
+from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+
+# Each block keeps K = 3 + 6*Ns (+12) columns of 128 floats in shared
+# memory; 64 spheres (204 KB with the camera) fit the 227 KB a block may
+# take.  A thread keeps one record per (sample, bounce), at most 16
+# (csrc/grad.cu kMaxRecords).
+MAX_SPHERES = 64
+MAX_RECORDS = 16
+
+
+def supports(scene: Scene, settings: RenderSettings) -> bool:
+    """K2's scope: K1's (Cornell sphere scenes, no assets), at most
+    ``MAX_SPHERES`` spheres and ``MAX_RECORDS`` samples x bounces."""
+    return (cuda_radiance.supports(scene, settings)
+            and scene.spheres.count <= MAX_SPHERES
+            and 0 < settings.samples_per_pass * settings.bounces <= MAX_RECORDS)
+
+
+def n_partials(n_spheres: int, with_camera: bool) -> int:
+    """Width K of K2's partials row."""
+    return 3 + 6 * n_spheres + (12 if with_camera else 0)
+
+
+def _camera_leaves(camera: Camera):
+    return [camera.origin, camera.yaw, camera.pitch, camera.fov_deg]
+
+
+def _plain_loss(scene, settings, camera, target, frame, fresnel_coef,
+                fresnel_pow, seed):
+    rgb, _ = render_pass_reference(scene, settings, camera, frame,
+                                   fresnel_coef, fresnel_pow, seed)
+    return torch.sum((rgb - target) ** 2) * (1.0 / (settings.n_pixels * 3))
+
+
+def cornell_loss_grads_reference(scene: Scene, settings: RenderSettings,
+                                 camera: Camera, target, frame, fresnel_coef,
+                                 fresnel_pow, seed: int = 0,
+                                 with_camera: bool = False):
+    """The plain PyTorch version of K2: loss and gradients by autograd."""
+    f32 = dict(dtype=torch.float32, device=scene.device)
+    leaves = [scene.spheres.color, scene.spheres.emission,
+              torch.as_tensor(fresnel_coef, **f32).reshape(()),
+              torch.as_tensor(fresnel_pow, **f32).reshape(())]
+    if with_camera:
+        leaves += _camera_leaves(camera)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    color, emission, fc, fp = leaves[:4]
+    if with_camera:
+        camera = Camera(*leaves[4:])
+    with torch.enable_grad():
+        loss = _plain_loss(scene.replace_spheres(color=color, emission=emission),
+                           settings, camera, target, frame, fc, fp, seed)
+        grads = torch.autograd.grad(loss, leaves)
+    out = (loss.detach(), *grads[:4])
+    return out + (Camera(*grads[4:]),) if with_camera else out
+
+
+@functools.lru_cache(maxsize=None)
+def _k2():
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    lib = build.load("grad")
+    block_size = lib.vpt_grad_block_size
+    block_size.argtypes, block_size.restype = [], ctypes.c_int
+    fn = lib.vpt_grad
+    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32, i32,
+                   ptr, ptr, ptr]
+    fn.restype = ctypes.c_int
+    return fn, block_size()
+
+
+def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
+           target: torch.Tensor, frame: int, seed: int = 0,
+           with_camera: bool = False) -> torch.Tensor:
+    """Launch K2 on packed tables (``cuda_radiance.pack_camera`` /
+    ``pack_spheres``) on the current stream; returns the per-block partials
+    ``[n_blocks, K]`` (see ``csrc/grad.cu`` for the layout)."""
+    device = cam.device
+    n = settings.n_pixels
+    for name, t, shape in (("cam", cam, (14,)), ("spheres", sph, None),
+                           ("target", target, (n, 3))):
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"K2 {name} on {t.device}, want one CUDA device")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"K2 {name} must be contiguous float32")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"K2 {name} has shape {tuple(t.shape)}, want {shape}")
+    if sph.dim() != 2 or sph.shape[1] != 14 or not 0 < sph.shape[0] <= MAX_SPHERES:
+        raise ValueError(f"K2 spheres table has shape {tuple(sph.shape)}")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"{n} pixels is out of the kernel's range")
+    records = settings.samples_per_pass * settings.bounces
+    if not 0 < records <= MAX_RECORDS:
+        raise ValueError(f"K2 takes 1..{MAX_RECORDS} samples x bounces, not {records}")
+
+    fn, block = _k2()
+    partials = torch.empty((-(-n // block), n_partials(sph.shape[0], with_camera)),
+                           dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = fn(cam.data_ptr(), sph.data_ptr(), sph.shape[0],
+                 seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
+                 int(frame) & 0xFFFFFFFF, settings.width, settings.height,
+                 settings.samples_per_pass, settings.bounces, int(with_camera),
+                 target.data_ptr(), partials.data_ptr(),
+                 torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
+    launch.count += 1
+    return partials
+
+
+launch.count = 0
+
+
+def _camera_pullback(camera: Camera, settings: RenderSettings,
+                     dvec: torch.Tensor) -> Camera:
+    """Pull the cotangents of (origin, view dir, cx, cy) back to the
+    camera's leaves through ``Camera.basis`` (the twin of ``jax.vjp`` in
+    ``pallas_grad.py``)."""
+    leaves = [t.detach().requires_grad_() for t in _camera_leaves(camera)]
+    with torch.enable_grad():
+        vec = pack_camera(Camera(*leaves), settings, 0.0, 0.0)[:12]
+        grads = torch.autograd.grad(vec, leaves, grad_outputs=dvec)
+    return Camera(*grads)
+
+
+def cornell_loss_grads(scene: Scene, settings: RenderSettings, camera: Camera,
+                       target, frame, fresnel_coef, fresnel_pow,
+                       seed: int = 0, with_camera: bool = False):
+    """L2 loss and gradients of one pass through K2.
+
+    CPU tensors take :func:`cornell_loss_grads_reference`.  CUDA tensors
+    launch the kernel on the current stream; a failed build or launch
+    raises.
+    """
+    device = scene.device
+    if device.type == "cpu":
+        return cornell_loss_grads_reference(scene, settings, camera, target,
+                                            frame, fresnel_coef, fresnel_pow,
+                                            seed, with_camera)
+    if device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA devices, not {device}")
+    if not supports(scene, settings):
+        raise NotImplementedError(
+            "K2 covers Cornell sphere scenes with at most "
+            f"{MAX_SPHERES} spheres, {MAX_RECORDS} samples x bounces and no "
+            "assets")
+    if camera.device != device:
+        raise ValueError(f"camera on {camera.device}, scene on {device}")
+    with torch.no_grad():
+        cam = pack_camera(camera, settings, fresnel_coef, fresnel_pow)
+        sph = pack_spheres(scene.spheres)
+    total = launch(cam, sph, settings, target, frame, seed,
+                   with_camera).sum(dim=0)
+    ns = scene.spheres.count
+    rows = total[1:1 + 6 * ns].reshape(ns, 6)
+    out = (total[0] * (1.0 / (settings.n_pixels * 3)), rows[:, :3], rows[:, 3:],
+           total[1 + 6 * ns], total[2 + 6 * ns])
+    if not with_camera:
+        return out
+    return out + (_camera_pullback(camera, settings,
+                                   total[3 + 6 * ns:15 + 6 * ns]),)
+
+
+class CornellLoss(torch.autograd.Function):
+    """The L2 train loss as an autograd node over K2.
+
+    ``forward`` launches K2 once, saves the gradients it returns, and
+    returns the loss; ``backward`` scales the saved gradients by the
+    incoming ``grad_output``.
+    """
+
+    @staticmethod
+    def forward(ctx, color, emission, fresnel_coef, fresnel_pow, origin, yaw,
+                pitch, fov_deg, scene, settings, target, frame, seed,
+                with_camera):
+        out = cornell_loss_grads(
+            scene.replace_spheres(color=color, emission=emission), settings,
+            Camera(origin, yaw, pitch, fov_deg), target, frame, fresnel_coef,
+            fresnel_pow, seed, with_camera)
+        grads = list(out[1:5])
+        grads += _camera_leaves(out[5]) if with_camera else [None] * 4
+        ctx.save_for_backward(*grads)
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        grads = [grad_output * g if need and g is not None else None
+                 for g, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        return (*grads, None, None, None, None, None, None)
+
+
+def cornell_loss(params, scene: Scene, settings: RenderSettings,
+                 camera: Camera, target, frame, seed: int = 0):
+    """The L2 train loss of ``params`` (a ``parallel.sharding.TrainParams``)
+    grafted into ``scene``; differentiable in every leaf of ``params``.
+
+    ``params.camera``, when given, replaces ``camera`` and receives
+    gradients.  On the card this is :class:`CornellLoss` (one K2 launch);
+    on the CPU it is plain autograd through the integrator.
+    """
+    with_camera = params.camera is not None
+    cam = params.camera if with_camera else camera
+    if scene.device.type == "cpu":
+        return _plain_loss(
+            scene.replace_spheres(color=params.color, emission=params.emission),
+            settings, cam, target, frame, params.fresnel_coef,
+            params.fresnel_pow, seed)
+    return CornellLoss.apply(params.color, params.emission, params.fresnel_coef,
+                             params.fresnel_pow, *_camera_leaves(cam), scene,
+                             settings, target, frame, seed, with_camera)

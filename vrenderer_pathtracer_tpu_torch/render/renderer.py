@@ -51,7 +51,7 @@ class Renderer:
 
     def __init__(self, width: int = 512, height: int = 512, *,
                  settings: Optional[RenderSettings] = None, seed: int = 0,
-                 device, device_mesh=None):
+                 device="cuda", device_mesh=None):
         if device_mesh is not None:
             _not_ported("device_mesh (sharded rendering)", SHARDING_ITEM)
         self.device = torch.device(device)

@@ -45,6 +45,12 @@ class Scene:
     def device(self) -> torch.device:
         return self.spheres.device
 
+    def replace_spheres(self, **kw) -> "Scene":
+        """The same scene with some sphere fields replaced (e.g. the
+        trainable ``color``/``emission``)."""
+        return dataclasses.replace(
+            self, spheres=dataclasses.replace(self.spheres, **kw))
+
 
 def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings:
     """Derive the ``has_*`` flags from the scene and resolve the radiance
