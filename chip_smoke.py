@@ -5,10 +5,10 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card: print ``nvidia-smi``'s name and power limit.
-2. Build: compile K1 (``csrc/radiance.cu``) and K2 (``csrc/grad.cu``) of
-   ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
-   started together; print the seconds and ptxas' report (registers, spills
-   and stack of every kernel instance).
+2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``) and K3 +
+   K3b (``csrc/traverse.cu``) of ``vrenderer_pathtracer_tpu_torch`` from the
+   sources, one ``nvcc`` each, started together; print the seconds and
+   ptxas' report (registers, spills and stack of every kernel instance).
 3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
@@ -40,6 +40,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and 20 ``train_step`` calls (device busy time, idle share, top kernels).
 11. Bounds: the least time the card could take for each kernel's work on
    this run's inputs (see ``bound``).
+12. The nm scene (``bench.py::_nm_wavefront_bench``): a 28.5k-triangle UV
+   sphere with diffuse, normal and specular maps under a 64x128 HDRI, no
+   Cornell box, camera at z = 40, loaded through ``Renderer.load_mesh``,
+   ``load_texture`` and ``load_hdr`` (the port's host library built with
+   g++ from its own sources).
+13. K3 and K3b against the plain ``traverse`` on the card: the bench's
+   traversal view (1024x512 primary rays from z = 28), a bounce-1 wave of
+   the render path at 256x256, and the primary and bounce-1 waves of one
+   1024x1024 pass; both against ``brute_force`` on a 1.5k-triangle sphere
+   with 64x64 rays; K3 against K3b.  Contract: see ``HIT_MISMATCH_FRAC``;
+   planted faults (``planted_traversal_faults``) must break it.
+14. Mesh render path: ``Renderer(1024, 1024)`` on the nm scene, 1 warm-up
+   and 10 timed passes; K3's count must rise by ``bounces`` a pass, K3b's
+   and the plain ``traverse``'s stay 0; the image is finite and the mesh
+   lit.  Then the same renderer with the mesh's 8-wide tree dropped
+   (``init_mesh``), 3 passes through K3b.  The port's ``Renderer`` on the
+   card against the same scene on the CPU at 64x32.
+15. Times from CUDA events: K3 and K3b per primary wave (2M rays) and per
+   bounce wave, the wrapper, and the plain version at the bench's
+   traversal view and on one pass's waves.
+16. Where the time goes: a ``torch.profiler`` trace of 20 mesh passes.
+17. Bounds of K3 and K3b: node visits, box tests and triangle tests
+   counted by the kernels on one pass's waves (see ``traversal_bound``).
 
 The last lines are the kernel table as one JSON object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -114,6 +137,37 @@ HBM_BYTES_PER_S = 3.35e12
 FWD_STEP = {"fp32": 280, "fp32_per_sphere": 29, "sfu": 17, "sfu_per_sphere": 1,
             "int32": 155}
 REV_STEP = {"fp32": 70, "sfu": 3}
+
+# The mesh path (phases 12-17).  The nm scene of bench.py::_nm_wavefront_bench
+# and the small sphere of tests/test_config3_textured_mesh.py.
+NM_SPHERE = (12.0, 120, 120)     # radius, n_theta, n_phi: 28,560 triangles
+SMALL_SPHERE = (14.0, 24, 32)    # 1,472 triangles
+MESH_PASSES, MESH_K3B_PASSES = 10, 3
+# Contract of K3/K3b against the plain traverse and brute_force, and of K3
+# against K3b, on the same rays.  Two programs that round the triangle test
+# differently (FMA contraction, summation order) disagree on rays that graze
+# a triangle's edge or plane: such a ray may hit in one and miss in the
+# other, or hit the neighbour across a shared edge at the same t.  Measured
+# on an H100 (PERF.md): hit/miss never differed, and at most 5.7e-6 of a
+# set's rays (3 of 524,288) hit another triangle.  The limits sit a few
+# times above those readings, HIT_MISMATCH_FRAC (21 rays of a 2M wave) and
+# GEOMETRY_MISMATCH_FRAC (42), and far below what planted faults read (a
+# single dropped leaf: see planted_traversal_faults and PERF.md).  Where
+# both hit the same triangle, t is one float32 rounding chain of ~20
+# operations apart: T_RTOL (measured at most 2.3e-5).  A miss returns t_max
+# exactly.
+HIT_MISMATCH_FRAC = 1e-5
+GEOMETRY_MISMATCH_FRAC = 2e-5
+T_RTOL = 1e-4
+# Operations per unit of traversal work, counted from csrc/traverse.cu (one
+# FP32 add, multiply, min, max or compare each; the IEEE division as one SFU
+# reciprocal and 4 FP32 operations): a box (slab) test is 6 subtractions, 6
+# multiplications, 10 min/max and a compare (23); a triangle test is 27
+# multiplications, 18 additions, 7 compares and the division (56 + 1 SFU);
+# a node visit is ~30 INT32 operations (pop, record and axis loads, push
+# loop) and each tested child 4 more.
+TRAV_OPS = {"fp32_per_box": 23, "fp32_per_tri": 56, "sfu_per_tri": 1,
+            "int32_per_visit": 30, "int32_per_box": 4}
 
 
 def _compare(name, got, want, depth_outliers=False):
@@ -233,7 +287,7 @@ def bound(n_spheres, tests, hits, n_bytes, reverse=None):
     return max(t_ops, t_bytes) * 1e3, by, ops
 
 
-def device_profile(name, fn, n):
+def device_profile(name, fn, n, top=5):
     """Trace ``n`` calls of ``fn`` with torch.profiler; print the device
     busy time per call, the host wall per call (profiled), the idle share
     and the kernels that take the most device time."""
@@ -258,8 +312,358 @@ def device_profile(name, fn, n):
     print(f"profile {name}: device busy {busy:.1f} us/call, host wall "
           f"{wall:.1f} us/call (profiled), idle share {1 - busy / wall:.1%}, "
           f"{sum(r[2] for r in rows)} device ops/call")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:5]:
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"    {us:9.1f} us  x{count}  {key[:90]}")
+
+
+def nm_assets():
+    """The nm scene's HDRI and maps, bench.py's recipe (seed 0)."""
+    rng = np.random.default_rng(0)
+    hdr = rng.uniform(0, 1.5, (64, 128, 3)).astype(np.float32)
+    tex = rng.uniform(0.1, 1, (256, 256, 3)).astype(np.float32)
+    nmap = (rng.uniform(0, 1, (256, 256, 3)) * 0.2
+            + (0.4, 0.4, 0.8)).astype(np.float32)
+    smap = rng.uniform(0, 1, (256, 256, 3)).astype(np.float32)
+    return hdr, tex, nmap, smap
+
+
+def nm_renderer(obj, width, height, device):
+    """The nm scene through the Renderer's own entry points."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+
+    hdr, tex, nmap, smap = nm_assets()
+    r = Renderer(width, height, settings=RenderSettings(
+        samples_per_pass=2, bounces=4), device=device)
+    r.load_mesh(obj)
+    r.load_texture(tex, 2.2, 0)
+    r.load_texture(nmap, 2.2, 1)
+    r.load_texture(smap, 2.2, 2)
+    r.load_hdr(hdr)
+    r.update_camera(origin=(0.0, 0.0, 40.0))
+    return r
+
+
+def capture_waves(r):
+    """Render one pass of ``r`` and return the (ray_o, ray_d, t_max) of
+    every mesh search in it, in bounce order."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    waves, real = [], k3.traverse_cuda
+
+    def spy(mesh, o, d, t):
+        waves.append((o.clone(), d.clone(), t.clone()))
+        return real(mesh, o, d, t)
+
+    k3.traverse_cuda = spy
+    try:
+        r.render()
+    finally:
+        k3.traverse_cuda = real
+    return waves
+
+
+def traversal_contract(a):
+    """Whether a ``hit_agreement`` reading meets the phase-13 contract."""
+    return (a["hit_mismatch"] <= HIT_MISMATCH_FRAC
+            and a["geometry_mismatch"] <= GEOMETRY_MISMATCH_FRAC
+            and a["t_rel_max"] <= T_RTOL and a["miss_t_exact"])
+
+
+def agreement(name, mesh, got, want, t_max):
+    """Print how two closest-hit results on the same rays agree."""
+    from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import hit_agreement
+
+    a = hit_agreement(mesh, got, want, t_max)
+    print(f"  {name}: {a['rays']} rays, hit {a['hit_frac']:.4%}, hit/miss "
+          f"mismatch {a['hit_mismatch']:.5%}, other triangle "
+          f"{a['geometry_mismatch']:.5%}, t rel err max {a['t_rel_max']:.3g}"
+          f" (abs {a['t_abs_max']:.3g}), misses return t_max: "
+          f"{a['miss_t_exact']}")
+    return a
+
+
+def check_hits(name, mesh, got, want, t_max):
+    """Hold two closest-hit results to the phase-13 contract."""
+    a = agreement(name, mesh, got, want, t_max)
+    assert traversal_contract(a), name
+    return a
+
+
+def planted_traversal_faults(mesh, slot):
+    """``mesh`` as K3 (with its 8-wide tree) or K3b (without) would walk it
+    with one fault each, through its node records: the last triangle of
+    every leaf skipped; the last inner child of every node dropped (the far
+    one for rays along the node's sort axis); and, a rare fault, the one
+    leaf that holds triangle ``slot`` dropped, so only the rays that would
+    hit that leaf go wrong.  Slots still index the same triangles."""
+    import dataclasses
+
+    name = "nodes8_i" if mesh.nodes8_f is not None else "nodes_i"
+    recs = getattr(mesh, name)
+
+    def children():  # [nodes, children, (ref, count)], a fresh copy
+        return recs.clone().view(recs.shape[0], -1, 2)
+
+    short = children()
+    cnt = short[..., 1]
+    cnt[cnt >= 2] -= 1
+    pruned = children()
+    inner = pruned[..., 1] == 0
+    k = torch.arange(inner.shape[1], device=recs.device)
+    last = torch.where(inner, k, -1).max(dim=1).values
+    rows = (last >= 0).nonzero().squeeze(1)
+    pruned[rows, last[rows], 1] = -1
+    dropped = children()
+    ref, cnt = dropped[..., 0], dropped[..., 1]
+    row = (slot if name == "nodes_i" else
+           int((mesh.tri_pack[:, 9] == slot).nonzero()[0, 0]))
+    node, child = ((cnt > 0) & (ref <= row) & (row < ref + cnt)).nonzero()[0]
+    dropped[node, child, 1] = -1
+    return {what: dataclasses.replace(mesh, **{name: r.reshape(recs.shape)})
+            for what, r in (("last triangle of every leaf skipped", short),
+                            ("last inner child of every node dropped", pruned),
+                            (f"the leaf of triangle {slot} dropped", dropped))}
+
+
+def mesh_read_bytes(mesh, wide):
+    """Bytes of the mesh arrays K3 (``wide``) or K3b reads, each once.  K3:
+    a node's 64-byte record row and 4-byte axis, 24 of a child box row's 32
+    bytes for each non-empty child, 48 of a leaf-block row's 64 bytes for
+    each leaf row.  K3b: a node's 48-byte box row and 16-byte record, and
+    36 bytes (v0, e1, e2) for each leaf slot."""
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
+
+    if wide:
+        cnt = mesh.nodes8_i.view(-1, 8, 2)[..., 1]
+        return (cnt.shape[0] * (64 + 4) + 24 * int((cnt >= 0).sum())
+                + 48 * int(cnt.clamp(0, MAX_LEAF).sum()))
+    cnt = mesh.nodes_i.view(-1, 2, 2)[..., 1]
+    return cnt.shape[0] * (48 + 16) + 36 * int(cnt.clamp(0, MAX_LEAF).sum())
+
+
+def traversal_bound(mesh, wide, waves):
+    """(bound_ms, bound_by, work, bytes) of K3 (``wide``) or K3b over one
+    pass's ``waves``: per wave the larger of the bytes over the memory rate
+    and, per operation type, the operations over the card's peak rate,
+    summed over the waves.  A wave reads t_max (4 bytes) and writes slot
+    and t (8) for every ray, and reads origin and direction (24) only where
+    t_max > 0: a dead lane returns after reading t_max.  The mesh is read
+    once a pass (``mesh_read_bytes``, charged to the first wave): it stays
+    in L2 between waves.  The work is what the kernel itself counts on
+    these rays."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    launch = k3.launch_k3 if wide else k3.launch_k3b
+    mesh_bytes = mesh_read_bytes(mesh, wide)
+    total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0], 0
+    for i, (o, d, t) in enumerate(waves):
+        stats = torch.zeros(3, dtype=torch.int64, device=o.device)
+        launch(mesh, o, d, t, stats=stats)
+        visits, boxes, tris = (int(x) for x in stats.tolist())
+        work = [a + b for a, b in zip(work, (visits, boxes, tris))]
+        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
+                       + tris * TRAV_OPS["fp32_per_tri"],
+               "sfu": tris * TRAV_OPS["sfu_per_tri"],
+               "int32": visits * TRAV_OPS["int32_per_visit"]
+                        + boxes * TRAV_OPS["int32_per_box"]}
+        t_ops = max(ops[k] / RATES[k] for k in ops)
+        wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
+                      + (mesh_bytes if i == 0 else 0))
+        n_bytes += wave_bytes
+        t_bytes = wave_bytes / HBM_BYTES_PER_S
+        total += max(t_ops, t_bytes)
+        by_ops += t_ops if t_ops >= t_bytes else 0.0
+    return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
+            work, n_bytes)
+
+
+def mesh_phases(dev, card, rays_per_pass_of):
+    """Phases 12-17; returns the K3 and K3b rows of the kernel table."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+    from vrenderer_pathtracer_tpu_torch.core.camera import Camera, generate_rays
+    from vrenderer_pathtracer_tpu_torch.kernels.build import BUILD_DIR
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    # 12. The nm scene.
+    work_dir = BUILD_DIR / "smoke"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    nm_obj, small_obj = str(work_dir / "nm_sphere.obj"), str(work_dir / "small.obj")
+    write_uv_sphere(nm_obj, *NM_SPHERE)
+    write_uv_sphere(small_obj, *SMALL_SPHERE)
+    t0 = time.perf_counter()
+    r = nm_renderer(nm_obj, WIDTH, HEIGHT, dev)
+    setup_s = time.perf_counter() - t0
+    s, mesh = r.settings, r.scene.mesh
+    assert (s.radiance_kernel, s.traversal) == ("wavefront", "cuda")
+    assert s.has_mesh and s.has_hdr and s.has_normal_map and s.has_specular_map
+    binary = mesh.without_wide()
+    print(f"nm scene: {mesh.tri_count.item()} triangles, "
+          f"{mesh.nodes_i.shape[0]} binary / {mesh.nodes8_i.shape[0]} wide "
+          f"nodes, load_mesh + textures + HDRI {setup_s:.2f} s")
+
+    # 13. K3 and K3b against the plain traversal and brute_force.
+    view = Camera.default(dev).replace(
+        origin=torch.tensor([0.0, 0.0, 28.0], device=dev))
+    bo, bd = (x.contiguous() for x in generate_rays(view, 1024, 512))
+    bt = torch.full((bo.shape[0],), 1e6, device=dev)
+    small = nm_renderer(nm_obj, 256, 256, dev)
+    bounce1_256 = capture_waves(small)[1]
+    main_waves = capture_waves(r)
+    assert len(main_waves) == s.bounces
+    sets = {"bench view 1024x512": (bo, bd, bt),
+            "bounce-1 wave 256^2": bounce1_256,
+            "primary wave 1024^2": main_waves[0],
+            "bounce-1 wave 1024^2": main_waves[1]}
+    print("K3/K3b vs the plain traverse on the card "
+          f"(limits: hit/miss {HIT_MISMATCH_FRAC:g}, other triangle "
+          f"{GEOMETRY_MISMATCH_FRAC:g} of the rays, t rtol {T_RTOL:g}):")
+    max_err = {"K3": 0.0, "K3b": 0.0}
+    wants = {}
+    for name, (o, d, t) in sets.items():
+        want = wants[name] = trav.traverse(mesh, o, d, t)
+        for kname, m in (("K3", mesh), ("K3b", binary)):
+            a = check_hits(f"{kname} {name}", mesh,
+                           k3.traverse_cuda(m, o, d, t), want, t)
+            max_err[kname] = max(max_err[kname], a["t_abs_max"])
+        check_hits(f"K3 vs K3b {name}", mesh, k3.traverse_cuda(mesh, o, d, t),
+                   k3.traverse_cuda(binary, o, d, t), t)
+    # Planted faults on the primary wave: each is a wrong kernel, and each
+    # must break the contract.  The rare one drops the leaf that holds the
+    # triangle the centre pixel's ray hits.
+    o, d, t = main_waves[0]
+    want = wants["primary wave 1024^2"]
+    centre = int(want[0][HEIGHT // 2 * WIDTH + WIDTH // 2])
+    assert centre >= 0, "the centre ray misses the mesh"
+    print("planted faults, primary wave 1024^2 against the plain traverse:")
+    for kname, m in (("K3", mesh), ("K3b", binary)):
+        for what, bad in planted_traversal_faults(m, centre).items():
+            a = agreement(f"{kname}, {what}", mesh,
+                          k3.traverse_cuda(bad, o, d, t), want, t)
+            assert not traversal_contract(a), f"{kname}, {what} passes"
+    sm = pack_mesh(load_obj(small_obj), device=dev)
+    so, sd = (x.contiguous() for x in generate_rays(
+        Camera.default(dev).replace(origin=torch.tensor([0.0, 0.0, 40.0],
+                                                        device=dev)), 64, 64))
+    st = torch.full((so.shape[0],), 1e6, device=dev)
+    want = trav.brute_force(sm, so, sd, st)
+    print(f"K3/K3b vs brute_force, {sm.tri_count.item()} triangles, 64x64 rays:")
+    check_hits("plain traverse", sm, trav.traverse(sm, so, sd, st), want, st)
+    for kname, m in (("K3", sm), ("K3b", sm.without_wide())):
+        check_hits(kname, sm, k3.traverse_cuda(m, so, sd, st), want, st)
+    for kname, m in (("K3", mesh), ("K3b", binary)):
+        o, d, t = main_waves[1]
+        assert all(torch.equal(x, y) for x, y in zip(
+            k3.traverse_cuda(m, o, d, t), k3.traverse_cuda(m, o, d, t))), kname
+    print("K3 and K3b repeat launches bit-identical")
+
+    # 14. The mesh render path: K3 only, bounces launches a pass.
+    k1.launch.count = k2.launch.count = 0
+    k3.launch_k3.count = k3.launch_k3b.count = trav.traverse.count = 0
+    r.clear_buffer()
+    r.render()
+    torch.cuda.synchronize()
+    assert k3.launch_k3.count == s.bounces
+    t0 = time.perf_counter()
+    for i in range(MESH_PASSES):
+        img, depth = r.render()
+        assert k3.launch_k3.count == s.bounces * (i + 2)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / MESH_PASSES
+    k3_launches = k3.launch_k3.count
+    assert k3.launch_k3b.count == trav.traverse.count == 0
+    assert k1.launch.count == k2.launch.count == 0
+    assert torch.isfinite(img).all() and torch.isfinite(depth).all()
+    centre = img[HEIGHT // 2 - 32:HEIGHT // 2 + 32, WIDTH // 2 - 32:WIDTH // 2 + 32]
+    assert centre.mean().item() > 0.05, "the mesh's centre is black"
+    assert (depth[HEIGHT // 2, WIDTH // 2] < 1.0).item()
+    rays = rays_per_pass_of(s)
+    print(f"mesh render path: nm scene {WIDTH}x{HEIGHT}, {s.samples_per_pass}"
+          f" spp, {s.bounces} bounces: {wall * 1e3:.3f} ms/pass wall, "
+          f"{rays / wall / 1e6:.1f} Mrays/s, image mean {img.mean().item():.4f},"
+          f" centre {centre.mean().item():.4f}, K3 launches {k3_launches}, "
+          f"K3b 0, plain traverse 0, {card}")
+    profile_pass = r.render
+
+    # 16. Where the time goes (before the mesh changes below).
+    device_profile("mesh render pass", profile_pass, 20, top=12)
+
+    # 14, continued: the same renderer with the 8-wide tree dropped runs K3b.
+    r.init_mesh(binary)
+    k3.launch_k3.count = k3.launch_k3b.count = trav.traverse.count = 0
+    for i in range(MESH_K3B_PASSES):
+        bimg, _ = r.render()
+        assert k3.launch_k3b.count == s.bounces * (i + 1)
+    torch.cuda.synchronize()
+    k3b_launches = k3.launch_k3b.count
+    assert k3.launch_k3.count == trav.traverse.count == 0
+    assert torch.isfinite(bimg).all()
+    print(f"binary mesh render path: {MESH_K3B_PASSES} passes, K3b launches "
+          f"{k3b_launches}, K3 0, plain traverse 0")
+    r.init_mesh(mesh)
+    pair = [[torch.from_numpy(x) for x in nm_renderer(nm_obj, 64, 32, d)
+             .render_frames(2)] for d in (dev, "cpu")]
+    _compare("nm scene Renderer 64x32 cuda vs cpu", pair[0], pair[1])
+
+    # 15. Times (CUDA events), in turns.
+    prim, bounce = main_waves[0], main_waves[1]
+    timed = {
+        "K3 primary": (lambda: k3.launch_k3(mesh, *prim), 20),
+        "K3 bounce-1": (lambda: k3.launch_k3(mesh, *bounce), 20),
+        "K3 pass (4 waves)": (lambda: [k3.launch_k3(mesh, *w) for w in main_waves], 10),
+        "K3b primary": (lambda: k3.launch_k3b(binary, *prim), 20),
+        "K3b bounce-1": (lambda: k3.launch_k3b(binary, *bounce), 20),
+        "K3b pass (4 waves)": (lambda: [k3.launch_k3b(binary, *w) for w in main_waves], 10),
+        "wrapper primary": (lambda: k3.traverse_cuda(mesh, *prim), 20),
+        "plain bench view": (lambda: trav.traverse(mesh, bo, bd, bt), 1),
+        "plain pass (4 waves)": (lambda: [trav.traverse(mesh, *w) for w in main_waves], 1),
+    }
+    t = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        t[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    ms = {name: sum(v) / len(v) for name, v in t.items()}
+    for name, v in t.items():
+        print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    print(f"K3 {ms['K3 primary']:.4f} ms per primary wave ({prim[0].shape[0]} "
+          f"rays, {prim[0].shape[0] / ms['K3 primary'] / 1e3:.1f} Mrays/s), "
+          f"{ms['K3 bounce-1']:.4f} per bounce-1 wave; K3b "
+          f"{ms['K3b primary']:.4f} / {ms['K3b bounce-1']:.4f}; plain at the "
+          f"bench view {ms['plain bench view']:.2f} ms, {card}")
+
+    # 17. Bounds on one pass's waves.
+    rows = []
+    for kname, m, wide, launches in (("K3", mesh, True, k3_launches),
+                                     ("K3b", binary, False, k3b_launches)):
+        b_ms, by, work, n_bytes = traversal_bound(m, wide, main_waves)
+        k_ms = ms[f"{kname} pass (4 waves)"]
+        print(f"{kname} bound per pass {b_ms:.4f} ms ({by}; node visits "
+              f"{work[0]}, box tests {work[1]}, triangle tests {work[2]}, "
+              f"bytes {n_bytes} of which mesh {mesh_read_bytes(m, wide)}, "
+              f"live rays {[int((w[2] > 0).sum()) for w in main_waves]}), "
+              f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound")
+        rows.append({
+            "name": f"{kname} {'8-wide' if wide else 'binary'} BVH traversal",
+            "route": "cuda",
+            "source": "vrenderer_pathtracer_tpu_torch/csrc/traverse.cu",
+            "replaces": ("vrenderer_pathtracer_tpu/accel/pallas_traverse.py:"
+                         + ("173" if wide else "109")),
+            "launches": launches,
+            "max_abs_err": max_err[kname],
+            "ms": k_ms,
+            "ms_primary_wave": ms[f"{kname} primary"],
+            "ms_bounce1_wave": ms[f"{kname} bounce-1"],
+            "plain_ms": ms["plain pass (4 waves)"],
+            "bound_ms": b_ms,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    return rows
 
 
 def main() -> int:
@@ -531,6 +935,10 @@ def main() -> int:
         print(f"{name} bound {b_ms:.4f} ms ({by}; ops {ops}), measured "
               f"{ms:.4f} ms = {b_ms / ms:.1%} of bound")
 
+    mesh_rows = mesh_phases(
+        dev, card,
+        lambda st: st.n_pixels * st.samples_per_pass * st.bounces)
+
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
         "route": "cuda",
@@ -558,7 +966,7 @@ def main() -> int:
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,
-    }]}))
+    }, *mesh_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

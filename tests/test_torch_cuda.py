@@ -1,6 +1,6 @@
-"""PyTorch port on the card: K1 and K2 against their plain versions, the
-Renderer and the train steps on CUDA, and the failure paths of the build
-and the dispatch.
+"""PyTorch port on the card: K1, K2, K3 and K3b against their plain
+versions, the Renderer and the train steps on CUDA, and the failure paths
+of the build and the dispatch.
 
 Every test here needs a CUDA device (and ``nvcc``) and skips without one.
 The file imports no jax, so on a machine with a card it runs on its own:
@@ -13,6 +13,10 @@ elements off by more than 1e-5, and depth within 1e-3.  K2 is held to the
 gradient tolerances of tests/test_pallas_grad.py on that file's
 well-conditioned scene, at a frame where K1 and its plain version agree on
 every rgb element (a flipped branch moves the sums by a whole path).
+K3 and K3b are held to chip_smoke.py's traversal contract against the plain
+``traverse`` and ``brute_force``: hit/miss agrees on all but 1e-5 of the
+rays and the winning triangle on all but 2e-5 (none of these 4,096), t to
+rtol 1e-4 where the triangle is the same, and a miss returns t_max.
 """
 
 import numpy as np
@@ -91,12 +95,37 @@ def test_cuda_scene_never_takes_plain_path(cuda):
     scene = Scene.analytic(s, cuda)
     with pytest.raises(ValueError):
         settings_for_scene(scene, s.replace(radiance_kernel="torch"))
+    with pytest.raises(ValueError):
+        settings_for_scene(scene, s.replace(traversal="torch"))
+    # Outside K1's scope a CUDA scene runs the wavefront on the card, whose
+    # mesh search is K3/K3b; the fused mesh kernel is the K4 slice.
+    other = settings_for_scene(Scene.analytic(s.replace(use_cornell_box=False), cuda),
+                               s.replace(use_cornell_box=False))
+    assert (other.radiance_kernel, other.traversal) == ("wavefront", "cuda")
     with pytest.raises(NotImplementedError):
-        settings_for_scene(Scene.analytic(s.replace(use_cornell_box=False), cuda),
-                           s.replace(use_cornell_box=False))
+        settings_for_scene(scene, s.replace(radiance_kernel="cuda_mesh"))
     with pytest.raises(NotImplementedError):
         k1.render_pass_cuda(scene, s.replace(has_hdr=True), Camera.default(cuda),
                             1, 0.1, 3.0)
+
+
+def test_cornell_scene_beyond_k1_cap_raises(cuda):
+    """A Cornell sphere scene K1 cannot take (more spheres than its
+    shared-memory table holds) raises instead of running the wavefront."""
+    from vrenderer_pathtracer_tpu_torch import interop
+
+    s = vpt.RenderSettings(**SMALL)
+    n = k1.MAX_SPHERES + 1
+    rng = np.random.default_rng(0)
+    scene = interop.scene_from_numpy(dict(
+        pos=rng.uniform(-40, 40, (n, 3)), radius=np.full(n, 2.0),
+        emission=np.zeros((n, 3)), color=np.full((n, 3), 0.5),
+        refl=np.ones(n), spec_color=np.zeros((n, 3))), device=cuda)
+    with pytest.raises(NotImplementedError, match="K1"):
+        settings_for_scene(scene, s)
+    # Outside Cornell mode the same spheres run the wavefront on the card.
+    other = settings_for_scene(scene, s.replace(use_cornell_box=False))
+    assert other.radiance_kernel == "wavefront"
 
 
 def test_failed_build_raises(cuda, monkeypatch, tmp_path):
@@ -267,4 +296,144 @@ def test_failed_grad_build_raises(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
     with pytest.raises(RuntimeError, match="nvcc failed for grad"):
         build.build_all(["radiance", "grad"])
+    assert not list(tmp_path.iterdir())
+
+
+# -- K3 and K3b ---------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def meshes(tmp_path_factory):
+    """The 1.5k-triangle sphere on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    p = tmp_path_factory.mktemp("k3") / "s.obj"
+    write_uv_sphere(p, 14.0, 24, 32)
+    host = load_obj(str(p))
+    return pack_mesh(host, device="cuda"), pack_mesh(host, device="cpu")
+
+
+def _mesh_rays(device, n=4096, seed=3):
+    """Rays from z = 40 at the sphere and from random points in random
+    directions, with open, cutting and zero (dead-lane) bounds."""
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([np.tile([[0.0, 0.0, 40.0]], (n // 2, 1)),
+                        rng.uniform(-30, 30, (n // 2, 3))])
+    d = np.concatenate([
+        np.stack([rng.uniform(-0.45, 0.45, n // 2),
+                  rng.uniform(-0.45, 0.45, n // 2), -np.ones(n // 2)], 1),
+        rng.standard_normal((n // 2, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = rng.choice([1e6, 30.0, 0.0], size=n, p=[0.7, 0.25, 0.05])
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device)
+                 for x in (o, d, t))
+
+
+def _assert_traversal_contract(mesh, got, want, t_max):
+    from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import hit_agreement
+
+    a = hit_agreement(mesh, got, want, t_max)
+    assert a["hit_mismatch"] <= 1e-5, a
+    assert a["geometry_mismatch"] <= 2e-5, a
+    assert a["t_rel_max"] <= 1e-4, a
+    assert a["miss_t_exact"], a
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_k3_matches_plain_and_brute_force(meshes, wide):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import brute_force, traverse
+
+    card, cpu = meshes
+    m = card if wide else card.without_wide()
+    launch = k3.launch_k3 if wide else k3.launch_k3b
+    o, d, t = _mesh_rays("cuda")
+    before = launch.count
+    got = launch(m, o, d, t)
+    torch.cuda.synchronize()
+    assert launch.count == before + 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    _assert_traversal_contract(card, got, traverse(card, o, d, t), t)
+    _assert_traversal_contract(card, got, brute_force(card, o, d, t), t)
+    on_cpu = traverse(cpu, o.cpu(), d.cpu(), t.cpu())
+    _assert_traversal_contract(cpu, tuple(x.cpu() for x in got), on_cpu, t.cpu())
+
+
+def test_k3_and_k3b_agree_and_repeat_bit_identical(meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", seed=5)
+    wide = k3.traverse_cuda(card, o, d, t)
+    binary = k3.traverse_cuda(card.without_wide(), o, d, t)
+    _assert_traversal_contract(card, wide, binary, t)
+    for m in (card, card.without_wide()):
+        a, b = k3.traverse_cuda(m, o, d, t), k3.traverse_cuda(m, o, d, t)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+    k3.launch_k3(card, o, d, t, stats=stats)
+    visits, boxes, tris = stats.tolist()
+    assert 0 < visits <= boxes <= 8 * visits and tris > 0
+
+
+def test_k3_refuses_what_it_does_not_take(meshes):
+    import dataclasses
+
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    card, cpu = meshes
+    o, d, t = _mesh_rays("cuda", n=64)
+    lane_dense = dataclasses.replace(
+        card, nodes8_f=torch.zeros((8, 128), device="cuda"))
+    with pytest.raises(NotImplementedError):
+        k3.traverse_cuda(lane_dense, o, d, t)
+    with pytest.raises(ValueError):
+        k3.traverse_cuda(card, o.cpu(), d.cpu(), t.cpu())
+    with pytest.raises(ValueError):
+        k3.traverse_cuda(card, o.double(), d, t)
+    with pytest.raises(ValueError):
+        k3.traverse_cuda(card, o.t().contiguous().t(), d, t)
+    with pytest.raises(ValueError):
+        k3.traverse_cuda(card, o, d, t[:-1])
+    empty = k3.traverse_cuda(card, o[:0], d[:0], t[:0])
+    assert empty[0].shape == (0,)
+
+
+def test_mesh_renderer_on_card_runs_k3_and_matches_cpu(meshes, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    p = tmp_path / "s.obj"
+    write_uv_sphere(p, 14.0, 24, 32)
+    rng = np.random.default_rng(0)
+    hdr = rng.uniform(0, 1.5, (16, 32, 3)).astype(np.float32)
+    nmap = (rng.uniform(0, 1, (32, 32, 3)) * 0.2 + (0.4, 0.4, 0.8)).astype(np.float32)
+    imgs = []
+    for device in ("cuda", "cpu"):
+        r = vpt.Renderer(64, 32, settings=vpt.RenderSettings(
+            samples_per_pass=2, bounces=3), device=device)
+        r.load_mesh(str(p))
+        r.load_texture(nmap, 2.2, 1)
+        r.load_hdr(hdr)
+        r.update_camera(origin=(0.0, 0.0, 40.0))
+        before = (k3.launch_k3.count, trav.traverse.count)
+        imgs.append(r.render_frames(2))
+        if device == "cuda":
+            assert r.settings.radiance_kernel == "wavefront"
+            assert k3.launch_k3.count == before[0] + 2 * 3
+            assert trav.traverse.count == before[1]
+    _assert_contract(*[[torch.from_numpy(x) for x in pair] for pair in imgs])
+
+
+def test_failed_traverse_build_raises(cuda, monkeypatch, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
+    with pytest.raises(RuntimeError, match="nvcc failed for traverse"):
+        build.build("traverse")
     assert not list(tmp_path.iterdir())

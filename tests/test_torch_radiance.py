@@ -160,11 +160,13 @@ def test_unsupported_settings_raise():
     from vrenderer_pathtracer_tpu_torch.render import integrator
 
     s = RenderSettings(**PALLAS)
-    for flag in ("use_example_sphere", "has_mesh"):
-        with pytest.raises(NotImplementedError):
+    for flag in ("has_brdf", "use_brdf", "brdf_importance_sampling",
+                 "compact_waves", "sort_rays", "captured_attrs"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             integrator.check_scope(s.replace(**{flag: True}))
-    with pytest.raises(NotImplementedError):
-        Scene(spheres=Scene.analytic(s, "cpu").spheres, hdr=torch.zeros(2, 4, 3))
+    integrator.check_scope(s.replace(use_example_sphere=True, has_mesh=True))
+    with pytest.raises(NotImplementedError, match="K4"):
+        Scene(spheres=Scene.analytic(s, "cpu").spheres, brdf=torch.zeros(3, 8))
 
 
 def test_launch_refuses_tables_off_the_card():

@@ -103,14 +103,8 @@ def test_sync_render_records_stats():
 
 
 @pytest.mark.parametrize("call", [
-    lambda r: r.load_hdr(np.zeros((4, 8, 3), np.float32)),
-    lambda r: r.load_texture(np.zeros((4, 4, 3), np.float32)),
     lambda r: r.load_brdf(np.zeros((3, 8), np.float32)),
-    lambda r: r.init_mesh(None),
-    lambda r: r.load_mesh("mesh.obj"),
     lambda r: r.use_brdf(True),
-    lambda r: r.use_example_sphere(True),
-    lambda r: r.use_cornell_box(False),
     lambda r: r.toggle_fxaa(True),
 ])
 def test_unported_methods_raise(call):
@@ -118,14 +112,71 @@ def test_unported_methods_raise(call):
         call(_port(4, 4))
 
 
+@pytest.fixture(scope="module")
+def tiny_obj(tmp_path_factory):
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    p = tmp_path_factory.mktemp("tr") / "s.obj"
+    write_uv_sphere(p, 14.0, 6, 8)
+    return str(p)
+
+
+def _packed(path):
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+
+    return pack_mesh(load_obj(path), device="cpu")
+
+
+@pytest.mark.parametrize("call, check", [
+    (lambda r, p: r.load_hdr(np.ones((4, 8, 3), np.float32)),
+     lambda r: r.scene.hdr.shape == (4, 8, 3) and r.settings.has_hdr),
+    (lambda r, p: r.load_texture(np.full((4, 4, 3), 0.25, np.float32)),
+     lambda r: torch.allclose(r.scene.diffuse_map,
+                              torch.tensor(0.25) ** (1 / 2.2))
+     and r.settings.has_diffuse_map),
+    (lambda r, p: r.init_mesh(_packed(p)),
+     lambda r: r.settings.has_mesh and r.settings.traversal == "torch"),
+    (lambda r, p: r.load_mesh(p),
+     lambda r: r.scene.mesh.tri_count.item() == 2 * 8 * 5),
+    (lambda r, p: r.use_example_sphere(True),
+     lambda r: r.settings.use_example_sphere),
+    (lambda r, p: r.use_cornell_box(False),
+     lambda r: not r.settings.use_cornell_box and r.scene.spheres.count == 2),
+])
+def test_ported_methods_work_and_reset_frame(call, check, tiny_obj):
+    r = _port(8, 8, samples_per_pass=1, bounces=2)
+    r.render_frames(2)
+    assert r.get_frame_count() == 3
+    call(r, tiny_obj)
+    assert check(r)
+    assert r.get_frame_count() == 1 and torch.count_nonzero(r._accum) == 0
+    img, depth = r.render_frames(1)
+    assert np.isfinite(img).all() and img.shape == (8, 8, 3)
+
+
+def test_load_texture_rejects_unknown_type():
+    with pytest.raises(ValueError, match="texture type"):
+        _port(4, 4).load_texture(np.zeros((4, 4, 3), np.float32), 2.2, 3)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(settings=vpt.RenderSettings(has_hdr=False)),
     dict(settings=vpt.RenderSettings(use_fxaa=True, **CORNELL)),
     dict(settings=vpt.RenderSettings(**CORNELL), device_mesh=object()),
 ])
 def test_unported_constructor_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vpt.Renderer(4, 4, device="cpu", **kw)
+
+
+def test_non_cornell_scene_renders():
+    """Without the box and without an HDRI a miss is black; the two
+    analytic spheres are all the scene holds."""
+    r = vpt.Renderer(16, 16, settings=vpt.RenderSettings(
+        samples_per_pass=1, bounces=2), device="cpu")
+    assert not r.settings.has_hdr and r.settings.radiance_kernel == "torch"
+    img, depth = r.render_frames(1)
+    assert np.isfinite(img).all() and (depth == 1.0).mean() > 0.9
 
 
 def test_cuda_device_without_card_raises():
@@ -178,9 +229,20 @@ def test_interop_scene_renders_like_jax():
 
 
 def test_package_never_imports_jax(tmp_path):
+    """Render a Cornell pass and a mesh scene (the port's own host-library
+    build included) and take a train step, with no JAX module loaded."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import vrenderer_pathtracer_tpu_torch as v\n"
+        "from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere\n"
+        "write_uv_sphere('s.obj', 14.0, 6, 8)\n"
+        "m = v.Renderer(8, 8, settings=v.RenderSettings(bounces=2), device='cpu')\n"
+        "m.load_mesh('s.obj')\n"
+        "m.load_texture(np.full((4, 4, 3), 0.5, np.float32), 2.2, 0)\n"
+        "m.load_hdr(np.ones((4, 8, 3), np.float32))\n"
+        "mi, _ = m.render_frames(1)\n"
+        "assert m.settings.has_mesh and np.isfinite(mi).all()\n"
         "r = v.Renderer(8, 8, settings=v.RenderSettings(use_cornell_box=True,"
         " has_hdr=False), device='cpu')\n"
         "img, depth = r.render_frames(1)\n"

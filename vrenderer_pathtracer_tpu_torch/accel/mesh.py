@@ -1,0 +1,135 @@
+"""Mesh packing: host SBVH output -> device tensors (port of ``accel/mesh.py``).
+
+Triangles are stored per leaf slot in Möller–Trumbore form (v0, e1, e2)
+plus per-corner normals/tangents/uvs for barycentric interpolation.  Arrays
+are padded with degenerate triangles (zero edges -> zero determinant ->
+never hit) so leaf reads of ``MAX_LEAF`` slots never run out of bounds.
+The 8-wide collapse (``accel/wide.py``) is always built, in the sparse
+layout only: the JAX package's VMEM budgets, lane-dense switch and 20-bit
+record check are TPU artifacts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vrenderer_pathtracer_tpu_torch.accel.wide import build_leaf_packs, collapse_bvh8
+from vrenderer_pathtracer_tpu_torch.native import FlatBVH, HostMesh, build_sbvh
+from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData
+
+# Leaf capacity: the builder (csrc/sbvh.cc kMaxLeaf) forces splits above this,
+# giving the traversal loop a static triangle-test bound.
+MAX_LEAF = 8
+# Binary traversal stack depth (the plain ``traverse`` and K3b).  The
+# builder switches to index-balanced median splits at depth 48
+# (kSahDepthLimit), bounding total depth by 48 + ceil(log2(T)) < 80 for any
+# T < 2^31, so 96 entries never overflow; ``_check_stack_bound`` raises if
+# the builder's reported depth ever says otherwise.
+STACK_DEPTH = 96
+# K3's per-thread stack (csrc/traverse.cu kWideStack).  One visit pops one
+# node and pushes at most 7 of its 8 children on top of the entries below
+# it, so a tree of ``d`` wide levels needs at most 7 * d + 1 entries
+# (``wide_stack_need``); 256 entries take trees up to 36 wide levels.
+WIDE_STACK_DEPTH = 256
+
+
+def wide_stack_need(max_depth8: int) -> int:
+    """K3 stack entries needed for a tree of ``max_depth8`` wide levels."""
+    return 7 * max_depth8 + 1
+
+
+def _check_stack_bound(max_depth: int):
+    if max_depth + 2 > STACK_DEPTH:
+        raise ValueError(
+            f"SBVH depth {max_depth} would overflow the traversal stack "
+            f"(STACK_DEPTH={STACK_DEPTH}); rebuild with a shallower tree"
+        )
+
+
+def _check_wide_stack_bound(max_depth8: int):
+    if wide_stack_need(max_depth8) > WIDE_STACK_DEPTH:
+        raise ValueError(
+            f"8-wide BVH depth {max_depth8} needs {wide_stack_need(max_depth8)}"
+            f" stack entries > WIDE_STACK_DEPTH={WIDE_STACK_DEPTH}; rebuild "
+            "with a shallower tree")
+
+
+def wide_depth(nodes8_i: np.ndarray) -> int:
+    """Wide levels of an 8-wide tree (root = level 1), from its records."""
+    recs = np.asarray(nodes8_i).reshape(-1, 16)
+    depth, level = 0, [0]
+    while level:
+        depth += 1
+        r = recs[level]
+        level = r[:, 0::2][r[:, 1::2] == 0].tolist()
+    return depth
+
+
+def binary_depth(nodes_i: np.ndarray) -> int:
+    """Deepest inner node of a binary tree (root = 0), from its records."""
+    recs = np.asarray(nodes_i).reshape(-1, 4)
+    depth, level = -1, [0]
+    while level:
+        depth += 1
+        r = recs[level]
+        level = r[:, 0::2][r[:, 1::2] == 0].tolist()
+    return depth
+
+
+def pack_mesh(mesh: HostMesh, pad_to: int = 128, *, device) -> MeshData:
+    """Build the SBVH and gather triangle data into leaf-slot order, as
+    tensors on ``device``."""
+    return pack_from_bvh(mesh, build_sbvh(mesh.verts, mesh.tris), pad_to,
+                         device=device)
+
+
+def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
+                  device) -> MeshData:
+    _check_stack_bound(bvh.max_depth)
+    order = bvh.tri_order  # [R] original tri index per leaf slot
+    tri = mesh.tris[order]  # [R,3] vertex ids
+    v0 = mesh.verts[tri[:, 0]]
+    v1 = mesh.verts[tri[:, 1]]
+    v2 = mesh.verts[tri[:, 2]]
+
+    def corners(attr):
+        return np.stack([attr[tri[:, 0]], attr[tri[:, 1]], attr[tri[:, 2]]], axis=1)
+
+    r = len(order)
+    t_pad = -(-max(r, 1) // pad_to) * pad_to + MAX_LEAF  # slack for leaf reads
+
+    def pad(a, fill=0.0):
+        out = np.full((t_pad,) + a.shape[1:], fill, a.dtype)
+        out[:r] = a
+        return out
+
+    # 8-wide collapse + 8-aligned leaf blocks for K3 (accel/wide.py):
+    # nodes8_i leaf refs index the pack, whose rows record the original
+    # slot, so K3 returns slots of the contiguous arrays as traverse does.
+    n8f, n8i, n8ax, depth8 = collapse_bvh8(bvh.nodes_f, bvh.nodes_i)
+    _check_wide_stack_bound(depth8)
+    # K4's tangent pack (the third value) is not kept until K4 reads it.
+    n8i, tri_pack, _ = build_leaf_packs(
+        n8i, v0, v1 - v0, v2 - v0,
+        corners(mesh.uvs).reshape(-1, 6),
+        corners(mesh.tangents).reshape(-1, 9))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return MeshData(
+        nodes_f=t(bvh.nodes_f),
+        nodes_i=t(bvh.nodes_i),
+        tri_v0=t(pad(v0)),
+        tri_e1=t(pad(v1 - v0)),
+        tri_e2=t(pad(v2 - v0)),
+        tri_n=t(pad(corners(mesh.normals))),
+        tri_t=t(pad(corners(mesh.tangents))),
+        tri_uv=t(pad(corners(mesh.uvs))),
+        tri_count=torch.tensor(r, dtype=torch.int32, device=device),
+        nodes8_f=t(n8f),
+        nodes8_i=t(n8i),
+        nodes8_ax=t(n8ax),
+        tri_pack=t(tri_pack),
+    )

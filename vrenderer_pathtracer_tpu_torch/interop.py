@@ -1,10 +1,11 @@
-"""Convert the JAX package's scene, camera, sliders and train parameters
-into the port's.
+"""Convert the JAX package's scene, mesh, camera, sliders and train
+parameters into the port's.
 
 The functions take plain numpy leaves, ``{name: np.asarray(leaf)}`` of a
-JAX ``SphereSet``, ``Camera`` or ``TrainParams`` (``obj._asdict()``), so
-this module imports neither package's JAX code.  Both packages then render,
-and differentiate, the same scene.
+JAX ``SphereSet``, ``MeshData``, ``Camera`` or ``TrainParams``
+(``obj._asdict()``), and numpy arrays for the HDRI and the maps, so this
+module imports neither package's JAX code.  Both packages then render, and
+differentiate, the same scene.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.parallel.sharding import TrainParams
-from vrenderer_pathtracer_tpu_torch.scene.scene import MESH_SLICE, Scene
+from vrenderer_pathtracer_tpu_torch.scene.scene import K4_SLICE, MeshData, Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
 
 
@@ -24,17 +25,78 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def scene_from_numpy(spheres: Mapping[str, np.ndarray], *, device) -> Scene:
-    """A sphere-only port ``Scene`` from a JAX ``SphereSet``'s leaves."""
-    return Scene(spheres=SphereSet(
-        pos=_f32(spheres["pos"], device),
-        radius=_f32(spheres["radius"], device),
-        emission=_f32(spheres["emission"], device),
-        color=_f32(spheres["color"], device),
-        refl=torch.tensor(np.asarray(spheres["refl"], np.int32),
-                          device=device),
-        spec_color=_f32(spheres["spec_color"], device),
-    ))
+def _opt_f32(x, device):
+    return None if x is None else _f32(x, device)
+
+
+def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
+    """A port ``MeshData`` from a JAX ``MeshData``'s leaves.
+
+    Only the sparse single-level layout converts: a paged or lane-dense JAX
+    mesh is a TPU layout and raises.  The 8-wide tree is held to K3's stack
+    bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  K4's
+    deferred-fetch packs (``tri_aux_pack``, ``tri_nrm_pack``) are not
+    carried: no code of the port reads them yet.
+    """
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import (
+        _check_stack_bound, _check_wide_stack_bound, binary_depth, wide_depth)
+
+    if mesh.get("paged") is not None:
+        raise ValueError("a paged JAX mesh is a TPU layout; pack the mesh "
+                         "with the port's accel/mesh.py::pack_mesh")
+    n8f = mesh.get("nodes8_f")
+    if n8f is not None and np.shape(n8f)[-1] == 128:
+        raise ValueError("a lane-dense JAX mesh is a TPU layout; pack the "
+                         "mesh with the port's accel/mesh.py::pack_mesh")
+    if n8f is not None:
+        _check_wide_stack_bound(wide_depth(mesh["nodes8_i"]))
+
+    def i32(x):
+        return None if x is None else torch.tensor(np.asarray(x, np.int32),
+                                                   device=device)
+
+    out = MeshData(
+        nodes_f=_f32(mesh["nodes_f"], device),
+        nodes_i=i32(mesh["nodes_i"]),
+        tri_v0=_f32(mesh["tri_v0"], device),
+        tri_e1=_f32(mesh["tri_e1"], device),
+        tri_e2=_f32(mesh["tri_e2"], device),
+        tri_n=_f32(mesh["tri_n"], device),
+        tri_t=_f32(mesh["tri_t"], device),
+        tri_uv=_f32(mesh["tri_uv"], device),
+        tri_count=i32(mesh["tri_count"]),
+        nodes8_f=_opt_f32(n8f, device),
+        nodes8_i=i32(mesh.get("nodes8_i")),
+        nodes8_ax=i32(None if mesh.get("nodes8_ax") is None
+                      else np.reshape(mesh["nodes8_ax"], -1)),
+        tri_pack=_opt_f32(mesh.get("tri_pack"), device),
+    )
+    _check_stack_bound(binary_depth(mesh["nodes_i"]))
+    return out
+
+
+def scene_from_numpy(spheres: Mapping[str, np.ndarray], *, device, hdr=None,
+                     diffuse_map=None, normal_map=None, specular_map=None,
+                     mesh: Mapping[str, np.ndarray] | None = None) -> Scene:
+    """A port ``Scene`` from a JAX ``SphereSet``'s leaves, the JAX scene's
+    HDRI and maps as arrays, and its mesh's leaves (:func:`mesh_from_numpy`).
+    """
+    return Scene(
+        spheres=SphereSet(
+            pos=_f32(spheres["pos"], device),
+            radius=_f32(spheres["radius"], device),
+            emission=_f32(spheres["emission"], device),
+            color=_f32(spheres["color"], device),
+            refl=torch.tensor(np.asarray(spheres["refl"], np.int32),
+                              device=device),
+            spec_color=_f32(spheres["spec_color"], device),
+        ),
+        hdr=_opt_f32(hdr, device),
+        diffuse_map=_opt_f32(diffuse_map, device),
+        normal_map=_opt_f32(normal_map, device),
+        specular_map=_opt_f32(specular_map, device),
+        mesh=None if mesh is None else mesh_from_numpy(mesh, device=device),
+    )
 
 
 def camera_from_numpy(camera: Mapping[str, np.ndarray], *, device) -> Camera:
@@ -53,10 +115,10 @@ def train_params_from_numpy(params: Mapping, *, device) -> TrainParams:
 
     ``camera`` is None or a JAX ``Camera``'s leaves, as for
     :func:`camera_from_numpy`.  A trainable environment map (``hdr``)
-    belongs to the mesh slice.
+    belongs to the K4 slice (mesh-scene gradients).
     """
     if params.get("hdr") is not None:
-        raise NotImplementedError(f"trainable hdr: {MESH_SLICE}")
+        raise NotImplementedError(f"trainable hdr: {K4_SLICE}")
     camera = params.get("camera")
     return TrainParams(
         color=_f32(params["color"], device),

@@ -1,0 +1,163 @@
+"""ctypes bindings for the port's host library (SBVH builder + mesh loaders).
+
+The same C ABI and the same Python surface as the JAX package's ``native``
+module, for the parts the mesh path needs: OBJ and PLY import and the SBVH
+build.  The library is built from ``native/csrc`` at first use
+(``native/build.py``).  EXR, FBX and MERL loading and the dense paged
+builder are not bound: HDRIs come in as arrays, and FBX, MERL and the paged
+layout belong to later slices (ROADMAP Queue 1 items 9 and 11).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+
+from vrenderer_pathtracer_tpu_torch.native import build as _build
+
+_c_fp = ctypes.POINTER(ctypes.c_float)
+_c_ip = ctypes.POINTER(ctypes.c_int)
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_build.build()))
+    lib.vt_build_sbvh.restype = ctypes.c_int
+    lib.vt_build_sbvh.argtypes = [
+        _c_fp, ctypes.c_int, _c_ip, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_c_fp), ctypes.POINTER(_c_ip), _c_ip,
+        ctypes.POINTER(_c_ip), _c_ip, _c_ip,
+    ]
+    loader_args = [
+        ctypes.c_char_p,
+        ctypes.POINTER(_c_fp), ctypes.POINTER(_c_fp), ctypes.POINTER(_c_fp),
+        ctypes.POINTER(_c_fp), _c_ip, ctypes.POINTER(_c_ip), _c_ip,
+    ]
+    for fn in (lib.vt_load_obj, lib.vt_load_ply):
+        fn.restype = ctypes.c_int
+        fn.argtypes = loader_args
+    lib.vt_free.restype = None
+    lib.vt_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+# Native return codes -> reasons, so loader failures name the cause.
+_OBJ_ERRORS = {
+    1: "cannot open file",
+    2: "no geometry found (empty or not an OBJ)",
+}
+_PLY_ERRORS = {
+    1: "cannot open file",
+    2: "truncated or invalid geometry",
+    3: "unsupported PLY flavour (need ascii or binary_little_endian 1.0 "
+       "with x/y/z vertex properties)",
+}
+
+
+def _take(ptr, shape, dtype, lib):
+    """Copy a malloc'd C array into numpy and free the C side."""
+    n = int(np.prod(shape))
+    ctype = ctypes.c_float if dtype == np.float32 else ctypes.c_int
+    arr = np.ctypeslib.as_array(ctypes.cast(ptr, ctypes.POINTER(ctype)), (n,))
+    out = np.array(arr, dtype=dtype).reshape(shape)
+    lib.vt_free(ptr)
+    return out
+
+
+class HostMesh(NamedTuple):
+    """Indexed triangle mesh as loaded (pre-BVH)."""
+
+    verts: np.ndarray     # [V,3] float32, centered at centroid
+    normals: np.ndarray   # [V,3]
+    tangents: np.ndarray  # [V,3]
+    uvs: np.ndarray       # [V,2] (v flipped, reference parity)
+    tris: np.ndarray      # [T,3] int32
+
+
+class FlatBVH(NamedTuple):
+    """Binary SBVH as flat arrays (see csrc/sbvh.cc's header comment)."""
+
+    nodes_f: np.ndarray    # [M,12] float32 — child AABBs (lo0,hi0,lo1,hi1)
+    nodes_i: np.ndarray    # [M,4]  int32   — (ref,count) per child
+    tri_order: np.ndarray  # [R] int32 — original tri index per leaf slot
+    max_depth: int = 0     # deepest inner node (root = 0): stack-bound proof
+
+
+def _load_with(fn_name: str, errors: dict, path: str) -> HostMesh:
+    lib = _load()
+    pv, pn, pt, puv = _c_fp(), _c_fp(), _c_fp(), _c_fp()
+    ptris = _c_ip()
+    nv, nt = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(lib, fn_name)(
+        str(path).encode(), ctypes.byref(pv), ctypes.byref(pn),
+        ctypes.byref(pt), ctypes.byref(puv), ctypes.byref(nv),
+        ctypes.byref(ptris), ctypes.byref(nt),
+    )
+    if rc != 0:
+        kind = fn_name.removeprefix("vt_")
+        raise IOError(f"{kind}({path}): {errors.get(rc, f'unknown error {rc}')}"
+                      f" (code {rc})")
+    v, t = nv.value, nt.value
+    return HostMesh(
+        verts=_take(pv, (v, 3), np.float32, lib),
+        normals=_take(pn, (v, 3), np.float32, lib),
+        tangents=_take(pt, (v, 3), np.float32, lib),
+        uvs=_take(puv, (v, 2), np.float32, lib),
+        tris=_take(ptris, (t, 3), np.int32, lib),
+    )
+
+
+def load_obj(path: str) -> HostMesh:
+    """Wavefront OBJ import: centroid recentering, v-flip, smooth normals and
+    UV tangents where the file has none (csrc/loaders.cc)."""
+    return _load_with("vt_load_obj", _OBJ_ERRORS, path)
+
+
+def load_ply(path: str) -> HostMesh:
+    """PLY import (ascii / binary_little_endian) with the same
+    post-processing contract as :func:`load_obj`."""
+    return _load_with("vt_load_ply", _PLY_ERRORS, path)
+
+
+def load_mesh_file(path: str) -> HostMesh:
+    """Extension-dispatching mesh import (.obj, .ply)."""
+    p = str(path).lower()
+    if p.endswith(".obj"):
+        return load_obj(path)
+    if p.endswith(".ply"):
+        return load_ply(path)
+    if p.endswith(".fbx"):
+        raise NotImplementedError(
+            f"load_mesh_file({path}): FBX import is not ported; convert to "
+            "OBJ or PLY")
+    raise IOError(f"load_mesh_file({path}): unknown mesh format")
+
+
+def build_sbvh(verts: np.ndarray, tris: np.ndarray,
+               allow_spatial: bool = True) -> FlatBVH:
+    """SBVH over the mesh; ``allow_spatial=False`` builds object splits only
+    (no reference duplication)."""
+    lib = _load()
+    verts = np.ascontiguousarray(verts, np.float32)
+    tris = np.ascontiguousarray(tris, np.int32)
+    pf, pi, po = _c_fp(), _c_ip(), _c_ip()
+    n_nodes, n_refs, max_depth = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.vt_build_sbvh(
+        verts.ctypes.data_as(_c_fp), len(verts),
+        tris.ctypes.data_as(_c_ip), len(tris), int(allow_spatial),
+        ctypes.byref(pf), ctypes.byref(pi), ctypes.byref(n_nodes),
+        ctypes.byref(po), ctypes.byref(n_refs), ctypes.byref(max_depth),
+    )
+    if rc != 0:
+        reason = {1: "no triangles", 2: "out of memory"}.get(rc, "unknown")
+        raise RuntimeError(f"vt_build_sbvh failed with code {rc} ({reason})")
+    m, r = n_nodes.value, n_refs.value
+    return FlatBVH(
+        nodes_f=_take(pf, (m, 12), np.float32, lib),
+        nodes_i=_take(pi, (m, 4), np.int32, lib),
+        tri_order=_take(po, (r,), np.int32, lib),
+        max_depth=max_depth.value,
+    )

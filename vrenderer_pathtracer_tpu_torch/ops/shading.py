@@ -7,7 +7,7 @@
   normalised mirror reflection weighted by the specular colour, otherwise a
   cosine-weighted hemisphere sample weighted by ``albedo * cos * 2``.
 * BRDF (type 2) without a table: the cosine sample with the diffuse weight.
-  Measured tables belong to the mesh slice and raise here.
+  Measured tables belong to the K4 slice and raise here.
 
 The Fresnel comparison ``u < f`` is discrete, so the chosen branch's weight
 is scaled by the ratio ``p / p.detach()``: its value is 1, and its gradient
@@ -67,9 +67,9 @@ def scatter(ray_d, normal, tangent, color, spec_color, hit_type,
     measured-BRDF path reads it.
     """
     if brdf_table is not None:
-        from vrenderer_pathtracer_tpu_torch.scene.scene import MESH_SLICE
+        from vrenderer_pathtracer_tpu_torch.scene.scene import K4_SLICE
 
-        raise NotImplementedError(f"measured BRDF tables: {MESH_SLICE}")
+        raise NotImplementedError(f"measured BRDF tables: {K4_SLICE}")
     mirror_dir = reflect(ray_d, normal)          # SPEC: not normalised
     fresnel_dir = _norm(mirror_dir)              # DIFF specular: normalised
     cos_dir = cosine_hemisphere(normal, u_phi, u_r)

@@ -7,7 +7,7 @@ what it computes and what bounds it on the card.  This module:
 * ``supports`` — the kernel's scope (Cornell sphere scenes, no assets);
 * ``pack_camera`` / ``pack_spheres`` — the small tables the kernel reads;
 * ``render_pass_reference`` — the plain PyTorch version of the kernel,
-  ``generate_rays`` + ``integrator.render_pass``;
+  ``integrator.render_camera_pass``;
 * ``render_pass_cuda`` — the wrapper.  Tensors on the CPU take the plain
   version; tensors on a CUDA device launch the kernel (built at first use)
   or raise;
@@ -23,7 +23,7 @@ import functools
 import torch
 
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
-from vrenderer_pathtracer_tpu_torch.core.camera import Camera, generate_rays, pixel_ids
+from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.render import integrator
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
@@ -69,14 +69,8 @@ def pack_spheres(spheres: SphereSet) -> torch.Tensor:
     ], dim=1).contiguous()
 
 
-def render_pass_reference(scene: Scene, settings: RenderSettings,
-                          camera: Camera, frame: int, fresnel_coef,
-                          fresnel_pow, seed: int = 0):
-    """The plain PyTorch version of K1: ``(rgb_mean [N,3], depth [N])``."""
-    ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
-    ids = pixel_ids(settings.width, settings.height, scene.device)
-    return integrator.render_pass(scene, settings, ray_o, ray_d, ids, frame,
-                                  fresnel_coef, fresnel_pow, seed)
+# The plain PyTorch version of K1: ``(rgb_mean [N,3], depth [N])``.
+render_pass_reference = integrator.render_camera_pass
 
 
 @functools.lru_cache(maxsize=None)

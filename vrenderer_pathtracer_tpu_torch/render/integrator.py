@@ -1,33 +1,44 @@
-"""Wavefront path integrator for sphere scenes (port of ``render/integrator.py``).
+"""Wavefront path integrator (port of ``render/integrator.py``).
 
 Each bounce is one vectorised step over ``[B]`` SoA tensors (origins,
 directions, throughput, radiance); finished lanes are masked with
 ``torch.where``.  This is the plain PyTorch version of the radiance kernel
-(``render/cuda_radiance.py``), the CPU path, and, being differentiable,
-the base of the autograd train step.
+(``render/cuda_radiance.py``), the CPU path, the base of the autograd train
+step, and, on the card, the integrator of every scene K1 does not cover,
+with K3/K3b as its mesh search.
 
 Estimator (the JAX package's, constant for constant):
 
-* Cornell mode: a miss kills the path, discarding prior emission.
+* Cornell mode: a miss kills the path, discarding prior emission.  Otherwise
+  a miss fetches the HDRI: ``accum += mask * 2 * hdr[latlong]``.
 * depth = ``|origin - hit| / depth_scale`` at the first bounce.
 * ``accum += mask * emission``, then the material scatter
   (``ops/shading.py``).
+* Scene intersection: the analytic spheres, then the example sphere *or*
+  the mesh, a later hit winning only if strictly closer.
 
-Mesh, HDRI, example-sphere and measured-BRDF scenes are not in this slice
-and raise ``NotImplementedError``.
+Measured-BRDF scenes, compact bounce waves, attribute capture and ray
+sorting are not in this slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core import rng
+from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
+from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
+from vrenderer_pathtracer_tpu_torch.ops.envmap import (
+    sample_env_bilinear, sample_env_nearest)
 from vrenderer_pathtracer_tpu_torch.ops.intersect import INF, intersect_spheres
 from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
-from vrenderer_pathtracer_tpu_torch.scene.scene import MESH_SLICE, Scene
+from vrenderer_pathtracer_tpu_torch.scene.scene import Scene, check_scope
+from vrenderer_pathtracer_tpu_torch.scene.spheres import (
+    BRDF, DIFF, EXAMPLE_SPHERE_POS, EXAMPLE_SPHERE_RADIUS)
 
 
 class HitData(NamedTuple):
@@ -86,16 +97,85 @@ def _intersect_sphere_set(scene: Scene, ray_o, ray_d) -> HitData:
                    spec_color=spec, emission=emission, hit_type=refl)
 
 
-def check_scope(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for settings outside the sphere slice.
+def _example_sphere_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d,
+                        prev: HitData) -> HitData:
+    """Example-sphere intersection with texture/normal-map shading.
 
-    The other asset flags (``has_hdr``, ``has_brdf``, texture maps) change
-    nothing without the asset, and a port ``Scene`` holds none.
+    UVs come from the fresh surface normal (the reference reads a stale
+    one); the spherical tangent estimate is the reference's, also used as
+    the BRDF tangent.
     """
-    unported = [f for f in ("use_example_sphere", "has_mesh")
-                if getattr(settings, f)]
-    if unported:
-        raise NotImplementedError(f"settings {unported}: {MESH_SLICE}")
+    f32 = dict(dtype=torch.float32, device=ray_o.device)
+    pos = torch.tensor(EXAMPLE_SPHERE_POS, **f32)
+    r = torch.tensor([EXAMPLE_SPHERE_RADIUS], **f32)
+    dist = intersect_spheres(ray_o, ray_d, pos[None, :], r)[:, 0]
+    closer = dist < prev.t
+
+    dist_safe = torch.where(dist < INF, dist, torch.zeros_like(dist))
+    point = ray_o + ray_d * dist_safe[:, None]
+    normal = _norm(point - pos[None, :])
+    u = torch.atan2(normal[:, 0], normal[:, 2]) / (2.0 * math.pi) + 0.5
+    v = normal[:, 1] * 0.5 + 0.5
+
+    use_tex = not settings.use_brdf
+    texd, texn, texs = tex_ops.fetch_maps(
+        [scene.diffuse_map if settings.has_diffuse_map and use_tex else None,
+         scene.normal_map if settings.has_normal_map else None,
+         scene.specular_map if settings.has_specular_map and use_tex
+         else None],
+        u, v, settings.texture_filter)
+    color = texd if texd is not None else torch.ones_like(point)
+
+    # Spherical tangent estimate (the reference's formula, kept for parity).
+    pr = torch.clamp(torch.linalg.norm(point, dim=-1), min=1e-12)
+    theta = torch.arccos(torch.clamp(point[:, 2] / pr, -1.0, 1.0))
+    phi = torch.atan2(point[:, 1], point[:, 0])
+    tangent = torch.stack([torch.sin(theta) * torch.cos(phi),
+                           torch.sin(theta) * torch.sin(phi),
+                           torch.cos(theta)], dim=-1)
+
+    if settings.has_normal_map:
+        normal = tex_ops.apply_tbn(normal, tangent,
+                                   tex_ops.decode_normal_map(texn))
+
+    spec = texs if texs is not None else torch.zeros_like(point)
+    hit_type = torch.full(dist.shape, BRDF if settings.use_brdf else DIFF,
+                          dtype=torch.int32, device=dist.device)
+    c3 = closer[:, None]
+    return HitData(
+        hit=prev.hit | closer,
+        t=torch.where(closer, dist, prev.t),
+        point=torch.where(c3, point, prev.point),
+        normal=torch.where(c3, normal, prev.normal),
+        tangent=torch.where(c3, tangent, prev.tangent),
+        color=torch.where(c3, color, prev.color),
+        spec_color=torch.where(c3, spec, prev.spec_color),
+        emission=torch.where(c3, torch.zeros_like(point), prev.emission),
+        hit_type=torch.where(closer, hit_type, prev.hit_type),
+    )
+
+
+def intersect_scene(scene: Scene, settings: RenderSettings, ray_o, ray_d,
+                    alive=None) -> HitData:
+    """Scene intersection in the reference's priority order: Cornell and
+    analytic spheres, then the example sphere *or* the mesh, later hits
+    winning only if strictly closer.
+
+    ``alive`` ([B] bool, optional): lanes already terminated.  Their hit
+    record is masked out by every consumer; giving them a zero search bound
+    makes the mesh search return at once for them (K3/K3b exit on
+    ``t_max <= 0``), with live-lane results unchanged.
+    """
+    hd = _intersect_sphere_set(scene, ray_o, ray_d)
+    if settings.use_example_sphere:
+        hd = _example_sphere_hit(scene, settings, ray_o, ray_d, hd)
+    elif settings.has_mesh:
+        from vrenderer_pathtracer_tpu_torch.accel.traverse import mesh_hit
+
+        if alive is not None:
+            hd = hd._replace(t=torch.where(alive, hd.t, torch.zeros_like(hd.t)))
+        hd = mesh_hit(scene, settings, ray_o, ray_d, hd)
+    return hd
 
 
 def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
@@ -114,13 +194,24 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
     alive = torch.ones((n_rays,), dtype=torch.bool, device=ray_o.device)
     killed = torch.zeros_like(alive)  # Cornell mode: a miss kills the path
     zero3 = torch.zeros_like(mask)
+    # Env-fetch collapse: a path misses at most once, so the per-bounce HDRI
+    # fetches fold into ONE fetch after the loop, from the weight and the
+    # direction at the miss.
+    use_env = (not settings.use_cornell_box and settings.has_hdr
+               and scene.hdr is not None)
+    env_w = torch.zeros((n_rays, 3), **f32)
+    env_dir = ray_d
 
     for bounce in range(settings.bounces):
-        hd = _intersect_sphere_set(scene, ray_o, ray_d)
+        hd = intersect_scene(scene, settings, ray_o, ray_d,
+                             alive=None if bounce == 0 else alive)
         miss = alive & ~hd.hit
         live_hit = alive & hd.hit
         if settings.use_cornell_box:
             killed = killed | miss
+        elif use_env:
+            env_w = env_w + torch.where(miss[:, None], mask, zero3)
+            env_dir = torch.where(miss[:, None], ray_d, env_dir)
         if bounce == 0:
             d0 = torch.linalg.norm(ray_o - hd.point, dim=-1) / settings.depth_scale
             depth = torch.where(live_hit, d0, depth)
@@ -141,6 +232,14 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
         mask = torch.where(lh, mask * mult, mask)
         alive = live_hit
 
+    if use_env:
+        env_fetch = (sample_env_bilinear if settings.texture_filter == "bilinear"
+                     else sample_env_nearest)
+        # Paths that never missed carry env_w = 0 and a stale direction; an
+        # HDR asset may hold inf/NaN texels, and 0 * inf would poison them.
+        ever_missed = torch.any(env_w != 0.0, dim=-1, keepdim=True)
+        accum = accum + torch.where(ever_missed,
+                                    env_w * env_fetch(scene.hdr, env_dir), zero3)
     if settings.use_cornell_box:
         accum = torch.where(killed[:, None], zero3, accum)
         depth = torch.where(killed, torch.zeros_like(depth), depth)
@@ -175,3 +274,14 @@ def render_pass(scene: Scene, settings: RenderSettings, ray_o, ray_d,
         rgb_sum = rgb_sum + rgb_c.reshape(chunk, n, 3).sum(dim=0)
         depth = depth_c.reshape(chunk, n)[-1]  # same primary ray: last write
     return rgb_sum / s, depth
+
+
+def render_camera_pass(scene: Scene, settings: RenderSettings, camera,
+                       frame, fresnel_coef, fresnel_pow, seed: int = 0):
+    """One pass from the camera: ``generate_rays`` + :func:`render_pass`,
+    ``(rgb_mean [N,3], depth [N])``.  K1's plain version, and the pass of
+    every scene K1 does not cover."""
+    ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
+    ids = pixel_ids(settings.width, settings.height, scene.device)
+    return render_pass(scene, settings, ray_o, ray_d, ids, frame,
+                       fresnel_coef, fresnel_pow, seed)

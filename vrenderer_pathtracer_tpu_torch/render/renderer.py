@@ -1,9 +1,11 @@
-"""Renderer façade (port of ``render/renderer.py``), Cornell slice.
+"""Renderer façade (port of ``render/renderer.py``).
 
 Progressive accumulation state is the reference's: an accumulation buffer
 and a frame counter; every scene or camera edit resets ``frame=1`` and
-zeroes the buffer.  One pass is: the radiance kernel (its plain version on
-the CPU), the accumulation, and the tonemap.
+zeroes the buffer.  One pass is: the radiance kernel K1 for Cornell sphere
+scenes on the card, or the wavefront integrator (``render/integrator.py``,
+whose mesh search is K3/K3b on the card) for every other scene and on the
+CPU; then the accumulation and the tonemap.
 
 Parts of the JAX ``Renderer`` that the port has not reached raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -19,14 +21,16 @@ import torch
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.ops.tonemap import tonemap
-from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
-    render_pass_cuda, render_pass_reference)
+from vrenderer_pathtracer_tpu_torch.render import integrator
+from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import render_pass_cuda
 from vrenderer_pathtracer_tpu_torch.scene.scene import (
-    MESH_SLICE, Scene, settings_for_scene)
+    K4_SLICE, MeshData, Scene, settings_for_scene)
+from vrenderer_pathtracer_tpu_torch.scene.spheres import build_sphere_set
 from vrenderer_pathtracer_tpu_torch.utils.profiling import RenderStats, synchronize
 
 FXAA_ITEM = "ROADMAP Queue 1 item 8 (ops/fxaa.py)"
 SHARDING_ITEM = "ROADMAP Queue 1 item 13 (parallel/sharding.py)"
+DIFFUSE, NORMAL, SPECULAR = 0, 1, 2  # texture types (reference vTextureType)
 
 
 def _not_ported(what: str, item: str):
@@ -39,8 +43,8 @@ def _render_step(scene, camera, accum, frame, fresnel_coef, fresnel_pow,
         rgb, depth = render_pass_cuda(scene, settings, camera, frame,
                                       fresnel_coef, fresnel_pow, seed)
     else:
-        rgb, depth = render_pass_reference(scene, settings, camera, frame,
-                                           fresnel_coef, fresnel_pow, seed)
+        rgb, depth = integrator.render_camera_pass(
+            scene, settings, camera, frame, fresnel_coef, fresnel_pow, seed)
     accum.add_(rgb)  # in place: the buffer is the renderer's own state
     img = tonemap(accum, frame, settings.gamma)
     return img, depth
@@ -58,12 +62,16 @@ class Renderer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r} but no CUDA device is "
                                "available")
+        if self.device.type == "cuda" and self.device.index is None:
+            # The tensors' own device, so that device checks compare equal.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         base = settings or RenderSettings()
-        if not base.use_cornell_box:
-            _not_ported("scenes without the Cornell box", MESH_SLICE)
         if base.use_fxaa:
             _not_ported("FXAA", FXAA_ITEM)
+        # The requested backends: every scene edit re-resolves them from the
+        # current scene (settings_for_scene).
         self._radiance_request = base.radiance_kernel
+        self._traversal_request = base.traversal
         self.settings = base.replace(width=width, height=height)
         self.scene = Scene.analytic(self.settings, self.device)
         self.camera = Camera.default(self.device)
@@ -71,11 +79,8 @@ class Renderer:
         f32 = dict(dtype=torch.float32, device=self.device)
         self.fresnel_coef = torch.tensor(0.1, **f32)
         self.fresnel_pow = torch.tensor(3.0, **f32)
-        self.settings = settings_for_scene(
-            self.scene, self.settings.replace(
-                radiance_kernel=self._radiance_request))
         self.last_stats: Optional[RenderStats] = None
-        self.clear_buffer()
+        self._mutate()
 
     # -- state management ---------------------------------------------------
 
@@ -85,6 +90,15 @@ class Renderer:
         self._accum = torch.zeros((self.settings.n_pixels, 3),
                                   dtype=torch.float32, device=self.device)
         self._last_depth = None
+
+    def _mutate(self, **scene_updates):
+        """Apply scene edits, re-resolve the backends, reset the frame."""
+        if scene_updates:
+            self.scene = self.scene.replace(**scene_updates)
+        self.settings = settings_for_scene(self.scene, self.settings.replace(
+            radiance_kernel=self._radiance_request,
+            traversal=self._traversal_request))
+        self.clear_buffer()
 
     # -- reference API ------------------------------------------------------
 
@@ -127,30 +141,53 @@ class Renderer:
         return (self.frame - 1) * self.settings.samples_per_pass
 
     def load_hdr(self, hdr):
-        _not_ported("load_hdr", MESH_SLICE)
+        """Set the lat-long environment map: an [H,W,3] float array."""
+        if isinstance(hdr, (str, bytes)) or hasattr(hdr, "__fspath__"):
+            _not_ported("EXR import (load_hdr of a path; pass an array)",
+                        "ROADMAP Queue 1 item 12")
+        self._mutate(hdr=self._asset(hdr))
 
-    def load_texture(self, image, gamma: float = 2.2, texture_type: int = 0):
-        _not_ported("load_texture", MESH_SLICE)
+    def load_texture(self, image, gamma: float = 2.2,
+                     texture_type: int = DIFFUSE):
+        """Set a surface map.  Diffuse maps are stored as ``c**(1/gamma)``,
+        the reference's load-time contract (display gamma re-applies it)."""
+        img = self._asset(image)
+        if texture_type == DIFFUSE:
+            self._mutate(diffuse_map=torch.pow(img, 1.0 / gamma))
+        elif texture_type == NORMAL:
+            self._mutate(normal_map=img)
+        elif texture_type == SPECULAR:
+            self._mutate(specular_map=img)
+        else:
+            raise ValueError(f"unknown texture type {texture_type}")
 
     def load_brdf(self, table):
-        _not_ported("load_brdf", MESH_SLICE)
+        _not_ported("load_brdf", K4_SLICE)
 
-    def init_mesh(self, mesh):
-        _not_ported("init_mesh", MESH_SLICE)
+    def init_mesh(self, mesh: MeshData):
+        """Set a packed mesh (``accel/mesh.py::pack_mesh``) on this device."""
+        if mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, renderer on {self.device}")
+        self._mutate(mesh=mesh)
 
     def load_mesh(self, path: str):
-        _not_ported("load_mesh", MESH_SLICE)
+        """Load an OBJ/PLY, build the SBVH and its 8-wide collapse, and
+        upload it (reference ``loadMesh``)."""
+        from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+        from vrenderer_pathtracer_tpu_torch.native import load_mesh_file
+
+        self.init_mesh(pack_mesh(load_mesh_file(path), device=self.device))
 
     def use_brdf(self, enable: bool):
-        _not_ported("use_brdf", MESH_SLICE)
+        _not_ported("use_brdf", K4_SLICE)
 
     def use_example_sphere(self, enable: bool):
-        _not_ported("use_example_sphere", MESH_SLICE)
+        self.settings = self.settings.replace(use_example_sphere=enable)
+        self._mutate()
 
     def use_cornell_box(self, enable: bool):
-        if not enable:
-            _not_ported("use_cornell_box(False)", MESH_SLICE)
-        self.clear_buffer()
+        self.settings = self.settings.replace(use_cornell_box=enable)
+        self._mutate(spheres=build_sphere_set(enable, self.device))
 
     def toggle_fxaa(self, enable: bool):
         _not_ported("toggle_fxaa", FXAA_ITEM)
@@ -197,6 +234,10 @@ class Renderer:
         if self.last_stats is None:
             return "no synced frame yet - call render(sync=True)"
         return self.last_stats.hud_line(self.samples_per_pixel)
+
+    def _asset(self, array) -> torch.Tensor:
+        return torch.as_tensor(array, dtype=torch.float32,
+                               device=self.device).contiguous()
 
     def render_frames(self, n: int):
         """Run n progressive passes; return the final image as host numpy."""

@@ -1,8 +1,9 @@
 """Scene container and backend resolution (port of ``scene/scene.py``).
 
-The port's slice holds analytic spheres only.  The asset fields of the JAX
-``Scene`` (HDR map, textures, MERL table, mesh) are kept by name and must be
-``None``: each belongs to the mesh slice, ROADMAP Queue 1 item 9.
+A ``Scene`` holds the analytic spheres and the optional assets of the JAX
+``Scene``: the lat-long HDRI, the diffuse, normal and specular maps, and the
+mesh (:class:`MeshData`).  Every tensor lives on the spheres' device.  A
+measured BRDF table (``brdf``) belongs to the K4 slice and raises.
 """
 
 from __future__ import annotations
@@ -15,26 +16,99 @@ import torch
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet, build_sphere_set
 
-MESH_SLICE = "ROADMAP Queue 1 item 9 (mesh slice: mesh, HDRI, textures, MERL)"
+K4_SLICE = ("ROADMAP Queue 2, K4 (render/pallas_mesh.py: the fused mesh "
+            "kernel, MERL BRDFs, mesh-scene gradients)")
+LARGE_MESH_SLICE = ("ROADMAP Queue 1 item 11 (large-mesh slice: paged "
+                    "traversal, compact bounce waves, ray sorting)")
+CAPTURE_ITEM = ("ROADMAP Queue 2, K3 options (win-time attribute capture, "
+                "decided from an H100 measurement)")
 
-_ASSETS = ("hdr", "diffuse_map", "normal_map", "specular_map", "brdf", "mesh")
+_MAPS = ("hdr", "diffuse_map", "normal_map", "specular_map")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshData:
+    """Flattened SBVH + leaf-ordered triangle streams (see accel/mesh.py),
+    with the JAX ``MeshData``'s field names.
+
+    Node encoding (``nodes_i[n] = (c0, n0, c1, n1)``): count 0 -> child is
+    inner node ``c``; count > 0 -> leaf of ``n`` tri slots starting at ``c``;
+    count < 0 -> empty child (its AABB is inverted so slab tests miss).
+    Triangle slots are duplicated per leaf (spatial splits), stored in
+    Möller–Trumbore (v0, e1, e2) form with per-corner attributes.
+
+    The 8-wide collapse of the same tree (``nodes8_*``, ``tri_*pack``) is
+    what K3 traverses; without it (``nodes8_f`` None) the card runs K3b on
+    the binary nodes.  Only the sparse layout exists here: ``nodes8_f``
+    [N*8,8], ``tri_pack`` [T8,16].  ``paged`` is always None (the paged
+    layout belongs to the large-mesh slice).
+    """
+
+    nodes_f: torch.Tensor   # [M,12] float32 — child AABBs (lo0,hi0,lo1,hi1)
+    nodes_i: torch.Tensor   # [M,4]  int32   — (ref,count) per child
+    tri_v0: torch.Tensor    # [T,3] float32
+    tri_e1: torch.Tensor    # [T,3]
+    tri_e2: torch.Tensor    # [T,3]
+    tri_n: torch.Tensor     # [T,3,3] per-corner normals
+    tri_t: torch.Tensor     # [T,3,3] per-corner tangents
+    tri_uv: torch.Tensor    # [T,3,2] per-corner uvs
+    tri_count: torch.Tensor  # [] int32 — valid slots (rest is padding)
+    paged: None = None
+    nodes8_f: Optional[torch.Tensor] = None    # [N*8,8] child boxes (lo3,hi3,0,0)
+    nodes8_i: Optional[torch.Tensor] = None    # [N,16] 8 x (ref,count)
+    nodes8_ax: Optional[torch.Tensor] = None   # [N] build-time sort axis
+    tri_pack: Optional[torch.Tensor] = None      # [T8,16] (v0,e1,e2,slot,uv corners)
+    # K4's deferred-fetch packs (tangent and normal corners); None until the
+    # K4 slice reads them.
+    tri_aux_pack: Optional[torch.Tensor] = None
+    tri_nrm_pack: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.paged is not None:
+            raise NotImplementedError(f"paged meshes: {LARGE_MESH_SLICE}")
+        devices = {t.device for t in self.tensors()}
+        if len(devices) != 1:
+            raise ValueError(f"mesh tensors on several devices: {devices}")
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tri_v0.device
+
+    def without_wide(self) -> "MeshData":
+        """The same mesh with the 8-wide tree dropped: the card traverses
+        it with K3b (the binary kernel)."""
+        return dataclasses.replace(self, nodes8_f=None, nodes8_i=None,
+                                   nodes8_ax=None, tri_pack=None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
     spheres: SphereSet
-    hdr: Optional[torch.Tensor] = None
-    diffuse_map: Optional[torch.Tensor] = None
-    normal_map: Optional[torch.Tensor] = None
-    specular_map: Optional[torch.Tensor] = None
-    brdf: Optional[torch.Tensor] = None
-    mesh: Optional[object] = None
+    hdr: Optional[torch.Tensor] = None           # [H,W,3] float32 lat-long env map
+    diffuse_map: Optional[torch.Tensor] = None   # [H,W,3] linearised
+    normal_map: Optional[torch.Tensor] = None    # [H,W,3] raw
+    specular_map: Optional[torch.Tensor] = None  # [H,W,3] raw
+    brdf: Optional[torch.Tensor] = None          # MERL table: the K4 slice
+    mesh: Optional[MeshData] = None
 
     def __post_init__(self):
-        present = [a for a in _ASSETS if getattr(self, a) is not None]
-        if present:
-            raise NotImplementedError(
-                f"scene assets {present} are not ported yet: {MESH_SLICE}")
+        if self.brdf is not None:
+            raise NotImplementedError(f"measured BRDF tables: {K4_SLICE}")
+        for name in _MAPS:
+            t = getattr(self, name)
+            if t is None:
+                continue
+            if t.device != self.device:
+                raise ValueError(f"{name} on {t.device}, spheres on {self.device}")
+            if t.dim() != 3 or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be a float32 [H,W,C] tensor")
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"mesh on {self.mesh.device}, spheres on "
+                             f"{self.device}")
 
     @classmethod
     def analytic(cls, settings: RenderSettings, device) -> "Scene":
@@ -45,6 +119,9 @@ class Scene:
     def device(self) -> torch.device:
         return self.spheres.device
 
+    def replace(self, **kw) -> "Scene":
+        return dataclasses.replace(self, **kw)
+
     def replace_spheres(self, **kw) -> "Scene":
         """The same scene with some sphere fields replaced (e.g. the
         trainable ``color``/``emission``)."""
@@ -52,31 +129,71 @@ class Scene:
             self, spheres=dataclasses.replace(self.spheres, **kw))
 
 
+def _resolve(request: str, want: str, what: str, device) -> str:
+    if request not in ("auto", want):
+        raise ValueError(f"{what}={request!r} cannot run this scene on "
+                         f"{device}; use 'auto' or {want!r}")
+    return want
+
+
+def check_scope(settings: RenderSettings) -> None:
+    """Raise ``NotImplementedError`` for settings the port does not cover
+    yet, naming the ROADMAP item that does."""
+    for flag, item in (("has_brdf", K4_SLICE), ("use_brdf", K4_SLICE),
+                       ("brdf_importance_sampling", K4_SLICE),
+                       ("compact_waves", LARGE_MESH_SLICE),
+                       ("sort_rays", LARGE_MESH_SLICE),
+                       ("captured_attrs", CAPTURE_ITEM)):
+        if getattr(settings, flag):
+            raise NotImplementedError(f"setting {flag}: {item}")
+
+
 def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings:
-    """Derive the ``has_*`` flags from the scene and resolve the radiance
-    backend from where the sphere tensors live.
+    """Derive the ``has_*`` flags from the scene's assets and resolve the
+    radiance and traversal backends from the scene's device.
 
-    ``"auto"`` becomes ``"cuda"`` (the hand-written kernel) for a CUDA scene
-    in the kernel's scope, and ``"torch"`` (the plain integrator) for a CPU
-    scene.  A CUDA scene never resolves to the plain path: out of the
-    kernel's scope it raises, and so does a request that does not match the
-    scene's device.
+    Radiance: a CPU scene runs the plain integrator (``"torch"``).  A CUDA
+    scene runs K1 (``"cuda"``) where it covers the scene (Cornell spheres,
+    no assets); a scene with a mesh, an HDRI or a map, the example sphere or
+    no Cornell box runs the wavefront integrator on the card
+    (``"wavefront"``), whose mesh search is K3 or K3b; a Cornell sphere
+    scene beyond K1's sphere cap raises.  Traversal:
+    ``"cuda"`` (K3/K3b, ``accel/cuda_traverse.py``) for a CUDA scene,
+    ``"torch"`` (the plain lockstep ``traverse``) for a CPU scene.  A CUDA
+    scene never resolves to the plain traversal, and a request that does not
+    match the device raises.  ``"cuda_mesh"`` (a fused mesh kernel) raises:
+    it is the K4 slice.
     """
-    from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import supports
+    from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
+        MAX_SPHERES, supports)
 
+    check_scope(settings)
+    if settings.radiance_kernel == "cuda_mesh":
+        raise NotImplementedError(f"the fused mesh kernel: {K4_SLICE}")
     resolved = settings.replace(
-        has_diffuse_map=False, has_normal_map=False, has_specular_map=False,
-        has_brdf=False, has_mesh=False, has_hdr=False,
+        has_diffuse_map=scene.diffuse_map is not None,
+        has_normal_map=scene.normal_map is not None,
+        has_specular_map=scene.specular_map is not None,
+        has_brdf=False,
+        has_mesh=scene.mesh is not None,
+        has_hdr=scene.hdr is not None,
     )
     on_cuda = scene.device.type == "cuda"
-    want = "cuda" if on_cuda else "torch"
-    request = settings.radiance_kernel
-    if request not in ("auto", want):
-        raise ValueError(
-            f"radiance_kernel={request!r} cannot run a scene on "
-            f"{scene.device}; use 'auto' or {want!r}")
-    if on_cuda and not supports(scene, resolved):
+    if not on_cuda:
+        radiance = "torch"
+    elif supports(scene, resolved):
+        radiance = "cuda"
+    elif (resolved.has_mesh or resolved.has_hdr or resolved.has_diffuse_map
+          or resolved.has_normal_map or resolved.has_specular_map
+          or resolved.use_example_sphere or not resolved.use_cornell_box):
+        radiance = "wavefront"
+    else:
         raise NotImplementedError(
-            "the CUDA radiance kernel covers Cornell sphere scenes only; "
-            f"other scenes on the card wait for {MESH_SLICE}")
-    return resolved.replace(radiance_kernel=want)
+            f"a Cornell sphere scene of {scene.spheres.count} spheres: K1 "
+            f"takes at most {MAX_SPHERES} (its sphere table in shared memory)")
+    return resolved.replace(
+        radiance_kernel=_resolve(settings.radiance_kernel, radiance,
+                                 "radiance_kernel", scene.device),
+        traversal=_resolve(settings.traversal, "cuda" if on_cuda else "torch",
+                           "traversal", scene.device),
+    )

@@ -2,7 +2,7 @@
 
 Two small spheres (a mirror and a gray Fresnel-diffuse one) and, in Cornell
 mode, the box as six giant spheres (the smallpt trick): a light and five
-walls.  Rows are listed in the reference's iteration order; the
+walls; and the example sphere's position and radius.  Rows are listed in the reference's iteration order; the
 intersection keeps the earliest row on a tie, so the order is the
 tie-break.
 """
@@ -52,6 +52,11 @@ _CORNELL = [
     (1e5, (0.0, 1e5 + 50.0, 0.0), (0, 0, 0), (1, 1, 1), DIFF, (0, 0, 0)),              # ceiling
     (1e5, (0.0, -1e5 - 50.0, 0.0), (0, 0, 0), (1, 1, 1), DIFF, (0, 0, 0)),             # floor
 ]
+
+# The example sphere (white diffuse, r = 10 at the origin) that replaces the
+# mesh when enabled (integrator._example_sphere_hit).
+EXAMPLE_SPHERE_RADIUS = 10.0
+EXAMPLE_SPHERE_POS = (0.0, 0.0, 0.0)
 
 
 def _soa(rows, device) -> SphereSet:
