@@ -5,10 +5,11 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card: print ``nvidia-smi``'s name and power limit.
-2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``) and K3 +
-   K3b (``csrc/traverse.cu``) of ``vrenderer_pathtracer_tpu_torch`` from the
-   sources, one ``nvcc`` each, started together; print the seconds and
-   ptxas' report (registers, spills and stack of every kernel instance).
+2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3 +
+   K3b (``csrc/traverse.cu``) and K4 (``csrc/mesh.cu``) of
+   ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
+   started together; print the seconds and ptxas' report (registers,
+   spills and stack of every kernel instance).
 3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
@@ -63,8 +64,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 16. Where the time goes: a ``torch.profiler`` trace of 20 mesh passes.
 17. Bounds of K3 and K3b: node visits, box tests and triangle tests
    counted by the kernels on one pass's waves (see ``traversal_bound``).
+18. The K4 scenes (``k4_renderers``), each through the ``Renderer``'s
+   entry points and resolving ``radiance_kernel == "cuda_mesh"``: the
+   mesh-megakernel scene of ``bench.py::_mesh_megakernel_bench`` (the nm
+   sphere, its 256^2 diffuse map and 64x128 HDRI, 1024^2); BASELINE config
+   4 (the example sphere, a synthetic gold-paint-like MERL table written as
+   a ``.binary`` and loaded through ``load_brdf(path)``, the HDRI, 1024x768)
+   with and without ``brdf_importance_sampling``; the nm sphere with a
+   glossy synthetic table under lobe MIS (1024^2); and the Cornell box with
+   the sphere and the diffuse map, with and without its five walls
+   (256^2); 2 spp, 4 bounces, camera at z = 40 outside the Cornell box.
+19. K4 against ``records_reference`` on the card on every K4 scene, record
+   field by field and on the composed images, under ``k4_contract``; two
+   launches bit-identical.
+20. Planted K4 faults (a dropped MIS factor, a MERL index off by one, the
+   Cornell kill-zeroing skipped, uv off by one texel), each of which must
+   break the contract.
+21. K4 render paths: 1 warm-up and 10 timed ``Renderer`` passes on each K4
+   scene but the wall-less one; K4's count rises by one a pass, and the plain integrator,
+   ``records_reference``, K1, K2, K3 and K3b never run; the image is finite
+   and lit.  Then the mesh-megakernel scene with
+   ``radiance_kernel="wavefront"`` (K3 as its search) as the comparison pass.
+22. ``deferred_opt_step`` with Adam on config 4's HDRI and MERL table for 12
+   steps at 1024x768: K4 runs each step and the loss falls; the gradients
+   through K4 + ``compose`` against the wavefront's autograd on one frame.
+23. A 600-sphere Cornell scene (more than K1 stages in shared memory)
+   through K1 against its plain version at 256^2.
+24. Times from CUDA events on the mesh-megakernel scene and config 4: K4
+   alone, the pass (packing + K4 + ``compose``), ``compose`` alone, the
+   plain version and the wavefront pass.
+25. Where the time goes: a ``torch.profiler`` trace of 20 K4 passes.
+26. K4's bound from the work it counts (``k4_bound``).
 
-The last lines are the kernel table as one JSON object and then
+The last lines are the kernel table (K1, K2, K3, K3b, K4) as one JSON
+object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -666,6 +699,501 @@ def mesh_phases(dev, card, rays_per_pass_of):
     return rows
 
 
+# The fused mesh path (phases 18-26).  The mesh-megakernel scene of
+# bench.py::_mesh_megakernel_bench (the nm sphere, its 256^2 diffuse map and
+# 64x128 HDRI from default_rng(0), no Cornell box, camera at z = 40);
+# BASELINE config 4 (the example sphere under the HDRI with a synthetic
+# gold-paint-like MERL table written as a .binary and loaded through
+# Renderer.load_brdf, 1024x768), with and without lobe MIS; and the nm
+# sphere with a glossy synthetic table under lobe MIS.
+K4_PASSES = 10
+K4_STEPS = 12
+CONFIG4 = (1024, 768)
+# Contract of K4 against records_reference on the same inputs.  The two
+# programs round differently (FMA contraction in K4, torch's reduction
+# order in the plain version), so a grazing ray flips hit or miss, or a MERL
+# bin edge flips an index, on a few lanes, and every later record of that
+# sample follows.  Held per record field (the fraction of elements off by
+# more than 1e-4; depth by more than 1e-3, K1's depth tolerance; MERL
+# indices unequal) and on the composed image (pixels off by more than 1e-3,
+# the mean error of the others, depth).  Measured on an H100 (PERF.md, PR
+# 4): at most 0.0078% of any field or of the pixels in the open scenes, and
+# in the Cornell box, whose r = 1e5 walls amplify the noise as they do for
+# K1, 0.20% (uv records) and 0.18% of the pixels.  The limits:
+# K4_FRAC in open scenes, K4_CORNELL_FRAC (K1's OUTLIER_FRAC) in the
+# Cornell box; the planted faults read 6.6% and more.
+K4_FRAC, K4_CORNELL_FRAC, K4_INLIER_MEAN = 1e-3, 1e-2, 1e-5
+K4_LOSS_DROP = 0.9
+K4_GRAD_RTOL, K4_GRAD_FRAC = 0.05, 0.02
+# Operations per unit of K4's counted work (csrc/mesh.cu), from the source
+# as FWD_STEP and TRAV_OPS are: a traced step tests every sphere (and the
+# example sphere) as K1 does; a hit runs the hit point, the surface (normal,
+# uv, tangent), two threefry blocks, the scatter and up to 14 record stores
+# (FWD_STEP plus ~40 FP32 operations and 2 SFU); a BRDF hit adds the MERL
+# index (two acosf, two atan2f, three normalisations: ~190 FP32, 8 SFU); a
+# lobe-MIS draw adds a threefry block, a 7-step binary search, a frame, a
+# reflection and the two pdfs (~180 FP32, 10 SFU, ~100 INT32).
+K4_OPS = {"hit_fp32": 320, "hit_sfu": 19, "hit_int32": 155,
+          "brdf_fp32": 190, "brdf_sfu": 8,
+          "mis_fp32": 180, "mis_sfu": 10, "mis_int32": 100}
+
+
+def glossy_merl(width, tint, amp=3000.0, floor=2.0):
+    """A synthetic glossy MERL table, [3, 90*90*180] raw values: a
+    theta_h lobe of the given width (radians) over a small floor, per
+    channel tinted (tests/test_brdf_sampling.py::glossy_table's recipe)."""
+    th = ((np.arange(90) + 0.5) / 90) ** 2 * (np.pi / 2)
+    prof = amp * np.exp(-((th / width) ** 2)) + floor
+    t = prof[None, :, None] * np.asarray(tint, np.float64)[:, None, None]
+    return np.broadcast_to(t, (3, 90, 90 * 180)).reshape(3, -1)
+
+
+def write_merl(path, table):
+    """``table`` as a MERL-100 .binary (int32 dims, then float64 values)."""
+    with open(path, "wb") as f:
+        np.asarray([90, 90, 180], np.int32).tofile(f)
+        np.asarray(table, np.float64).reshape(-1).tofile(f)
+
+
+def k4_renderers(work_dir, nm_obj, dev, cornell_size=256):
+    """The K4 scenes, each through the Renderer's entry points:
+    ``{name: Renderer}``."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+
+    hdr, tex, _, _ = nm_assets()
+    gold, gloss = str(work_dir / "gold.binary"), str(work_dir / "glossy.binary")
+    write_merl(gold, glossy_merl(0.12, (1.0, 0.72, 0.32)))
+    write_merl(gloss, glossy_merl(0.08, (1.0, 1.0, 1.0)))
+
+    def make(w, h, **kw):
+        return Renderer(w, h, settings=RenderSettings(
+            samples_per_pass=2, bounces=4, **kw), device=dev)
+
+    out = {}
+    r = out["mesh-megakernel"] = make(WIDTH, HEIGHT)
+    r.load_mesh(nm_obj)
+    r.load_texture(tex, 2.2, 0)
+    r.load_hdr(hdr)
+    for name, mis in (("config 4", False), ("config 4 + MIS", True)):
+        r = out[name] = make(*CONFIG4, brdf_importance_sampling=mis)
+        r.use_example_sphere(True)
+        r.load_hdr(hdr)
+        r.load_brdf(gold)
+        r.use_brdf(True)
+    r = out["mesh + MERL + MIS"] = make(WIDTH, HEIGHT, brdf_importance_sampling=True)
+    r.load_mesh(nm_obj)
+    r.load_hdr(hdr)
+    r.load_brdf(gloss)
+    r.use_brdf(True)
+    for r in out.values():
+        r.update_camera(origin=(0.0, 0.0, 40.0))
+    # The Cornell box with the mesh and the diffuse map (deferred emission
+    # under Cornell kills), and the same Cornell-mode scene without the five
+    # walls: the light and the two small spheres over the mesh, where many
+    # paths miss and are killed (the planted kill fault's scene; inside the
+    # walls, an infinite tube open only along +z, almost no path misses).
+    for name, walls in (("Cornell + mesh + texture", True),
+                        ("Cornell light, no walls, + mesh + texture", False)):
+        r = out[name] = make(cornell_size, cornell_size, use_cornell_box=True,
+                             has_hdr=False)
+        r.load_mesh(nm_obj)
+        r.load_texture(tex, 2.2, 0)
+        if not walls:
+            keep = torch.tensor([0, 6, 7], device=dev)  # light, mirror, Fresnel
+            sp = r.scene.spheres
+            r.scene = r.scene.replace_spheres(**{
+                f: getattr(sp, f)[keep] for f in (
+                    "pos", "radius", "emission", "color", "refl", "spec_color")})
+            r.clear_buffer()
+    return out
+
+
+def k4_args(r):
+    """(packed camera, packed spheres, scene, settings) of a Renderer."""
+    from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
+        pack_camera, pack_spheres)
+
+    return (pack_camera(r.camera, r.settings, r.fresnel_coef, r.fresnel_pow),
+            pack_spheres(r.scene.spheres), r.scene, r.settings)
+
+
+def k4_readings(r, got, want):
+    """How K4's records ``got`` agree with the plain version's ``want``:
+    per record field (records_agreement) and for the composed images:
+    the fraction of pixels off by more than 1e-3, the mean error of the
+    others and the depth's outliers."""
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    out = {"records": k4.records_agreement(got, want, r.settings,
+                                           atol={"depth": DEPTH_ATOL})}
+    (rgb_g, dep_g), (rgb_w, dep_w) = (k4.compose(x, r.scene, r.settings)
+                                      for x in (got, want))
+    diff = (rgb_g - rgb_w).abs().amax(dim=-1)
+    out["pixel_outliers"] = (diff > 1e-3).float().mean().item()
+    ok = diff[diff <= 1e-3]
+    out["inlier_mean_err"] = ok.mean().item() if ok.numel() else 0.0
+    out["max_abs_err"] = diff.max().item()
+    out["depth_outliers"] = ((dep_g - dep_w).abs() > 1e-3).float().mean().item()
+    out["finite"] = bool(torch.isfinite(rgb_g).all() and torch.isfinite(dep_g).all())
+    return out
+
+
+def print_readings(name, a):
+    rec = ", ".join(f"{k} {v[0]:.4%} (max {v[1]:.3g})"
+                    for k, v in a["records"].items())
+    print(f"  {name}: image outliers {a['pixel_outliers']:.4%} (inlier mean "
+          f"{a['inlier_mean_err']:.3g}, max {a['max_abs_err']:.4g}), depth "
+          f"outliers {a['depth_outliers']:.4%}; records off: {rec}")
+
+
+def k4_contract(a, cornell):
+    """Whether K4's readings against its plain version (``k4_readings``)
+    meet the card's contract (see K4_* above)."""
+    limit = K4_CORNELL_FRAC if cornell else K4_FRAC
+    return (a["finite"] and a["pixel_outliers"] <= limit
+            and a["inlier_mean_err"] <= K4_INLIER_MEAN
+            and a["depth_outliers"] <= limit
+            and all(frac <= limit for frac, _ in a["records"].values()))
+
+
+def k4_bound(r, stats, n_slots):
+    """(bound_ms, bound_by, ops, bytes) of one K4 launch on ``r``'s scene
+    from the work the kernel counted (``stats``, cuda_mesh.STATS order):
+    the larger of the bytes over the memory rate (records written once;
+    the mesh, its per-slot attribute arrays and the small tables read once)
+    and, per operation type, the operations over the card's peak rate."""
+    visits, boxes, tris, traced, hits, brdf, mis = stats
+    s, scene = r.settings, r.scene
+    spheres = scene.spheres.count + (1 if s.use_example_sphere else 0)
+    ops = {
+        "fp32": (traced * spheres * FWD_STEP["fp32_per_sphere"]
+                 + hits * K4_OPS["hit_fp32"] + brdf * K4_OPS["brdf_fp32"]
+                 + mis * K4_OPS["mis_fp32"] + boxes * TRAV_OPS["fp32_per_box"]
+                 + tris * TRAV_OPS["fp32_per_tri"]),
+        "sfu": (traced * spheres * FWD_STEP["sfu_per_sphere"]
+                + hits * K4_OPS["hit_sfu"] + brdf * K4_OPS["brdf_sfu"]
+                + mis * K4_OPS["mis_sfu"] + tris * TRAV_OPS["sfu_per_tri"]),
+        "int32": (hits * K4_OPS["hit_int32"] + mis * K4_OPS["mis_int32"]
+                  + visits * TRAV_OPS["int32_per_visit"]
+                  + boxes * TRAV_OPS["int32_per_box"]),
+    }
+    n_bytes = 4 * n_slots * s.n_pixels + 14 * 4 * scene.spheres.count
+    if s.has_mesh and not s.use_example_sphere:
+        mesh = scene.mesh
+        n_bytes += mesh_read_bytes(mesh, True) + sum(
+            getattr(mesh, f).numel() * 4 for f in ("tri_e1", "tri_e2", "tri_uv", "tri_t"))
+    t_ops = max(ops[k] / RATES[k] for k in ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            ops, n_bytes)
+
+
+def many_spheres(scene, n, rng, visible):
+    """``scene`` with diffuse spheres added up to ``n``: small ones on a
+    lattice inside the Cornell box, none overlapping (``visible``: random
+    radii and albedos), or unit ones far beyond its back and side walls,
+    where no ray of the box reaches."""
+    from vrenderer_pathtracer_tpu_torch import interop
+
+    sp = scene.spheres
+    k = n - sp.count
+    if visible:
+        # Diffuse and apart (spacing 10, radius 1.5-2.5): no mirror chains
+        # or near-equal hits of overlapping spheres to amplify float noise.
+        grid = np.stack(np.meshgrid(np.arange(-40.0, 41.0, 10.0),
+                                    np.arange(-40.0, 41.0, 10.0),
+                                    np.arange(-95.0, 0.0, 10.0), indexing="ij"), -1)
+        extra = dict(pos=grid.reshape(-1, 3)[:k], radius=rng.uniform(1.5, 2.5, k),
+                     color=rng.uniform(0.2, 0.9, (k, 3)))
+    else:
+        extra = dict(pos=np.stack([1e6 + 3.0 * np.arange(k), np.zeros(k),
+                                   np.full(k, -1e6)], 1),
+                     radius=np.ones(k), color=np.full((k, 3), 0.5))
+    extra.update(emission=np.zeros((k, 3)), refl=np.ones(k),
+                 spec_color=np.zeros((k, 3)))
+    return interop.scene_from_numpy(
+        {f: np.concatenate([getattr(sp, f).cpu().numpy(), v]) for f, v in extra.items()},
+        device=sp.device)
+
+
+def k4_phases(dev, card, work_dir, nm_obj):
+    """Phases 18-26; returns K4's row of the kernel table."""
+    from vrenderer_pathtracer_tpu_torch import (
+        DeferredParams, Renderer, RenderSettings, deferred_opt_step)
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.render import integrator
+    from vrenderer_pathtracer_tpu_torch.render.renderer import (
+        render_pass as render_pass_dispatch)
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    # 18. The K4 scenes, through the Renderer's entry points.
+    t0 = time.perf_counter()
+    rs = k4_renderers(work_dir, nm_obj, dev)
+    print(f"K4 scenes built in {time.perf_counter() - t0:.2f} s:")
+    for name, r in rs.items():
+        s = r.settings
+        assert (s.radiance_kernel, s.traversal) == ("cuda_mesh", "cuda"), name
+        print(f"  {name}: {s.width}x{s.height}, {s.samples_per_pass} spp, "
+              f"{s.bounces} bounces, {k4.layout(s)[1]} record slots, "
+              f"MIS {s.brdf_importance_sampling}")
+
+    # 19. K4 against its plain version on the card, records and images.
+    print("K4 vs records_reference on the card (limits: image, depth and "
+          f"record outliers {K4_FRAC:g}, in the Cornell box {K4_CORNELL_FRAC:g}; "
+          f"inlier mean {K4_INLIER_MEAN:g}):")
+    wants, max_err = {}, 0.0
+    for name, r in rs.items():
+        a = k4_args(r)
+        got = k4.launch_k4(*a, 1, 0)
+        torch.cuda.synchronize()
+        want = wants[name] = k4.records_reference(
+            r.scene, r.settings, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
+        rd = k4_readings(r, got, want)
+        print_readings(name, rd)
+        assert k4_contract(rd, r.settings.use_cornell_box), name
+        max_err = max(max_err, rd["max_abs_err"])
+        assert torch.equal(got, k4.launch_k4(*a, 1, 0)), f"{name}: K4 repeats differ"
+        del got
+    print("K4 repeat launches bit-identical")
+
+    # 20. Planted faults: each is a wrong K4, and each must break the contract.
+    print("planted K4 faults against records_reference:")
+    for what, (name, fault, arg) in {
+            "MIS factor dropped": ("mesh + MERL + MIS", k4.FAULT_MIS_FACTOR, 0.0),
+            "MERL index off by one": ("config 4", k4.FAULT_MERL_INDEX, 0.0),
+            "kill-zeroing skipped": ("Cornell light, no walls, + mesh + texture",
+                                     k4.FAULT_KILL, 0.0),
+            "uv off by one texel": ("mesh-megakernel", k4.FAULT_UV, 1.0 / 256)}.items():
+        r = rs[name]
+        bad = k4.launch_k4(*k4_args(r), 1, 0, fault=fault, fault_arg=arg)
+        rd = k4_readings(r, bad, wants[name])
+        print_readings(f"{what} ({name})", rd)
+        assert not k4_contract(rd, r.settings.use_cornell_box), f"{what} passes"
+    del wants, bad
+
+    # 21. Render paths: K4 once a pass; no plain version, no K3, no K1/K2.
+    plain_pass = integrator.render_pass
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("the plain integrator ran on a K4 scene")
+
+    integrator.render_pass = no_plain
+    k4.launch_k4.count = k4.records_reference.count = trav.traverse.count = 0
+    k3.launch_k3.count = k3.launch_k3b.count = k1.launch.count = k2.launch.count = 0
+    walls, launches = {}, {}
+    for name, r in rs.items():
+        if "no walls" in name:
+            continue  # the kill fault's scene: almost every path is killed
+        r.clear_buffer()
+        base = k4.launch_k4.count
+        r.render()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(K4_PASSES):
+            img, depth = r.render()
+            assert k4.launch_k4.count == base + i + 2
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / K4_PASSES
+        launches[name] = k4.launch_k4.count - base
+        assert torch.isfinite(img).all() and torch.isfinite(depth).all(), name
+        h, w = img.shape[:2]
+        centre = img[h // 2 - 32:h // 2 + 32, w // 2 - 32:w // 2 + 32].mean().item()
+        assert centre > 0.05, f"{name}: the centre is black"
+        assert (depth[h // 2, w // 2] < 1.0).item(), name
+        rays = r.settings.n_pixels * r.settings.samples_per_pass * r.settings.bounces
+        print(f"K4 render path, {name}: {walls[name] * 1e3:.3f} ms/pass wall, "
+              f"{rays / walls[name] / 1e6:.1f} Mrays/s, image mean "
+              f"{img.mean().item():.4f}, centre {centre:.4f}, K4 launches "
+              f"{launches[name]}, {card}")
+    integrator.render_pass = plain_pass
+    assert (k4.records_reference.count, trav.traverse.count, k3.launch_k3.count,
+            k3.launch_k3b.count, k1.launch.count, k2.launch.count) == (0,) * 6
+    k4_launches = k4.launch_k4.count
+    # The comparison pass: the mesh-megakernel scene on the wavefront.
+    r = rs["mesh-megakernel"]
+    rw = Renderer(WIDTH, HEIGHT, settings=RenderSettings(
+        samples_per_pass=2, bounces=4, radiance_kernel="wavefront"), device=dev)
+    rw.load_mesh(nm_obj)
+    hdr, tex, _, _ = nm_assets()
+    rw.load_texture(tex, 2.2, 0)
+    rw.load_hdr(hdr)
+    rw.update_camera(origin=(0.0, 0.0, 40.0))
+    assert rw.settings.radiance_kernel == "wavefront"
+    k4.launch_k4.count = 0
+    rw.render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(K4_PASSES):
+        wimg, wdepth = rw.render()
+    torch.cuda.synchronize()
+    wf_wall = (time.perf_counter() - t0) / K4_PASSES
+    assert k4.launch_k4.count == 0 and k3.launch_k3.count == 4 * (K4_PASSES + 1)
+    kimg, kdepth = r.current_frame()
+    diff = (kimg - wimg).abs()
+    px = (diff > 1e-3).any(dim=-1).float().mean().item()
+    print(f"  K4 vs wavefront image after {K4_PASSES + 1} passes: {px:.4%} "
+          f"pixels off by >1e-3, mean {diff.mean().item():.3g}, depth >1e-3 "
+          f"{((kdepth - wdepth).abs() > 1e-3).float().mean().item():.4%}")
+    assert px <= 0.02 and diff.mean().item() <= 2e-3  # the golden image contract
+    print(f"wavefront comparison pass, mesh-megakernel scene: {wf_wall * 1e3:.3f} "
+          f"ms/pass wall against K4's {walls['mesh-megakernel'] * 1e3:.3f}, {card}")
+    del rw
+
+    # 22. Training the deferred tables (config 4's HDRI and MERL table).
+    r = rs["config 4"]
+    s = r.settings
+    target, _ = k4.render_pass_mesh(r.scene.replace(hdr=r.scene.hdr * 1.5), s,
+                                    r.camera, 1, r.fresnel_coef, r.fresnel_pow)
+    params = DeferredParams.from_scene(r.scene, hdr=True, brdf=True)
+    for leaf in params.leaves():
+        leaf.requires_grad_()
+    step = deferred_opt_step(s, torch.optim.Adam(params.leaves(), lr=0.05),
+                             scene=r.scene)
+    integrator.render_pass = no_plain
+    k4.launch_k4.count = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(K4_STEPS):
+        params, m = step(params, r.scene, r.camera, target, 1, r.fresnel_coef,
+                         r.fresnel_pow)
+        losses.append(m["loss"].item())
+        assert k4.launch_k4.count == i + 1
+    step_wall = (time.perf_counter() - t0) / K4_STEPS
+    device_profile("deferred_opt_step (config 4)", lambda: step(
+        params, r.scene, r.camera, target, 1, r.fresnel_coef, r.fresnel_pow), 3,
+        top=8)
+    integrator.render_pass = plain_pass
+    assert all(math.isfinite(x) for x in losses)
+    print(f"deferred_opt_step, config 4 {s.width}x{s.height}, Adam on hdr + "
+          f"brdf: loss {losses[0]:.6g} -> {losses[-1]:.6g} in {K4_STEPS} steps, "
+          f"K4 launches {k4.launch_k4.count}, {step_wall * 1e3:.3f} ms/step wall")
+    assert losses[-1] < K4_LOSS_DROP * losses[0], losses
+    # The same gradients through K4 + compose and through the wavefront's
+    # autograd, on the same frame.
+    grads = {}
+    for kernel in ("cuda_mesh", "wavefront"):
+        ks = s.replace(radiance_kernel=kernel)
+        h = r.scene.hdr.clone().requires_grad_()
+        t = r.scene.brdf.clone().requires_grad_()
+        rgb, _ = render_pass_dispatch(r.scene.replace(hdr=h, brdf=t), ks, r.camera,
+                                      1, r.fresnel_coef, r.fresnel_pow)
+        loss = torch.sum((rgb - target) ** 2) / (s.n_pixels * 3)
+        grads[kernel] = torch.autograd.grad(loss, [h, t])
+    grad_err = {}
+    for name, g, w in zip(("hdr", "brdf"), grads["cuda_mesh"], grads["wavefront"]):
+        rel = ((g - w).norm() / w.norm()).item()
+        frac = ((g - w).abs() > 1e-3 * w.abs().max()).float().mean().item()
+        grad_err[name] = (rel, frac)
+        print(f"  d loss / d {name}: K4 vs wavefront rel err {rel:.4g}, entries "
+              f"off by >1e-3 of the scale {frac:.4%} (limits {K4_GRAD_RTOL:g}, "
+              f"{K4_GRAD_FRAC:g})")
+        assert w.abs().max().item() > 0 and rel <= K4_GRAD_RTOL and frac <= K4_GRAD_FRAC
+    del grads
+
+    # 23. Cornell scenes of 600 spheres (more than K1 stages in shared
+    # memory) through K1: with 592 spheres beyond the walls that no ray
+    # reaches, bit-identical to the 8-sphere scene (the table read from
+    # global memory gives the same winners); with 592 small visible
+    # spheres, against the plain version under the golden image contract.
+    from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+    from vrenderer_pathtracer_tpu_torch.scene.scene import Scene, settings_for_scene
+
+    # The visible scene at 1 spp and 2 bounces: each ray segment near a
+    # silhouette of the 592 spheres may flip between the two programs, so
+    # fewer segments keep the comparison about the sphere table.
+    cs = RenderSettings(width=256, height=256, samples_per_pass=1, bounces=2,
+                        use_cornell_box=True, has_hdr=False)
+    base = Scene.analytic(cs, dev)
+    cam = Camera.default(dev)
+    rng = np.random.default_rng(1)
+    far, visible = (many_spheres(base, 600, rng, visible=v) for v in (False, True))
+    k1.launch.count = 0
+    for scene in (far, visible):
+        assert settings_for_scene(scene, cs).radiance_kernel == "cuda"
+        assert scene.spheres.count == 600 > k1.SMEM_SPHERES
+    got_far, got_base = (k1.render_pass_cuda(sc, cs, cam, 1, 0.1, 3.0) for sc in (far, base))
+    assert all(torch.equal(x, y) for x, y in zip(got_far, got_base)), "K1 600 far spheres"
+    got = k1.render_pass_cuda(visible, cs, cam, 1, 0.1, 3.0)
+    want = k1.render_pass_reference(visible, cs, cam, 1, 0.1, 3.0)
+    torch.cuda.synchronize()
+    assert k1.launch.count == 3
+    diff = (got[0] - want[0]).abs().amax(dim=-1)
+    px = (diff > 1e-3).float().mean().item()
+    print(f"K1, 600-sphere Cornell scenes 256x256: beyond the walls bit-identical "
+          f"to the 8-sphere scene; visible, against plain: {px:.4%} pixels off "
+          f"by >1e-3, mean {diff.mean().item():.3g}, depth >1e-3 "
+          f"{((got[1] - want[1]).abs() > 1e-3).float().mean().item():.4%}")
+    assert px <= 0.02 and diff.mean().item() <= 2e-3  # the golden image contract
+
+    # 24. Times (CUDA events), in turns, on the mesh-megakernel scene and
+    # config 4: K4 alone on packed tables, the pass (packing + K4 +
+    # compose), compose alone, the plain version and the wavefront pass.
+    timed = {}
+    for name in ("mesh-megakernel", "config 4"):
+        r = rs[name]
+        a = k4_args(r)
+        rec = k4.launch_k4(*a, 1, 0)
+        pargs = (r.scene, r.settings, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
+        ws = r.settings.replace(radiance_kernel="wavefront")
+        timed[f"K4 {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
+        timed[f"pass {name}"] = (lambda p=pargs: k4.render_pass_mesh(*p), 10)
+        timed[f"compose {name}"] = (lambda rec=rec, r=r: k4.compose(rec, r.scene, r.settings), 10)
+        timed[f"plain {name}"] = (lambda p=pargs, r=r: k4.compose(
+            k4.records_reference(*p), r.scene, r.settings), 1)
+        timed[f"wavefront {name}"] = (lambda p=pargs, ws=ws: integrator.render_camera_pass(
+            p[0], ws, *p[2:]), 3)
+    t = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        t[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    ms = {name: sum(v) / len(v) for name, v in t.items()}
+    for name, v in t.items():
+        print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+
+    # 25. Where the time goes: 20 K4 passes of the mesh-megakernel scene.
+    device_profile("K4 render pass (mesh-megakernel)", rs["mesh-megakernel"].render,
+                   20, top=10)
+
+    # 26. K4's bound from the work it counts, per scene.
+    rows = {}
+    for name in ("mesh-megakernel", "config 4"):
+        r = rs[name]
+        stats = torch.zeros(len(k4.STATS), dtype=torch.int64, device=dev)
+        k4.launch_k4(*k4_args(r), 1, 0, stats=stats)
+        counts = dict(zip(k4.STATS, stats.tolist()))
+        n_slots = k4.layout(r.settings)[1]
+        b_ms, by, ops, n_bytes = k4_bound(r, stats.tolist(), n_slots)
+        rows[name] = (b_ms, by)
+        print(f"K4 bound, {name}: {b_ms:.4f} ms ({by}; {counts}; ops {ops}; "
+              f"bytes {n_bytes}, records {4 * n_slots * r.settings.n_pixels} "
+              f"written and read again by compose), measured {ms[f'K4 {name}']:.4f}"
+              f" ms = {b_ms / ms[f'K4 {name}']:.1%} of bound, {card}")
+    return {
+        "name": "K4 fused mesh-scene pass",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/mesh.cu",
+        "replaces": "vrenderer_pathtracer_tpu/render/pallas_mesh.py:254",
+        "launches": k4_launches,
+        "launches_by_scene": launches,
+        "max_abs_err": max_err,
+        "ms": ms["K4 mesh-megakernel"],
+        "ms_config4": ms["K4 config 4"],
+        "pass_ms": ms["pass mesh-megakernel"],
+        "compose_ms": ms["compose mesh-megakernel"],
+        "wavefront_ms": ms["wavefront mesh-megakernel"],
+        "plain_ms": ms["plain mesh-megakernel"],
+        "bound_ms": rows["mesh-megakernel"][0],
+        "bound_by": rows["mesh-megakernel"][1],
+        "bound_ms_config4": rows["config 4"][0],
+        "grad_rel_err": grad_err,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -938,6 +1466,8 @@ def main() -> int:
     mesh_rows = mesh_phases(
         dev, card,
         lambda st: st.n_pixels * st.samples_per_pass * st.bounces)
+    work_dir = build.BUILD_DIR / "smoke"
+    k4_row = k4_phases(dev, card, work_dir, str(work_dir / "nm_sphere.obj"))
 
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
@@ -966,7 +1496,7 @@ def main() -> int:
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,
-    }, *mesh_rows]}))
+    }, *mesh_rows, k4_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

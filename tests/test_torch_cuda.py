@@ -1,4 +1,4 @@
-"""PyTorch port on the card: K1, K2, K3 and K3b against their plain
+"""PyTorch port on the card: K1, K2, K3, K3b and K4 against their plain
 versions, the Renderer and the train steps on CUDA, and the failure paths
 of the build and the dispatch.
 
@@ -17,6 +17,8 @@ K3 and K3b are held to chip_smoke.py's traversal contract against the plain
 ``traverse`` and ``brute_force``: hit/miss agrees on all but 1e-5 of the
 rays and the winning triangle on all but 2e-5 (none of these 4,096), t to
 rtol 1e-4 where the triangle is the same, and a miss returns t_max.
+K4 is held to chip_smoke.py's K4 contract (``k4_contract``) against
+``records_reference``, record by record and on the composed image.
 """
 
 import numpy as np
@@ -97,35 +99,51 @@ def test_cuda_scene_never_takes_plain_path(cuda):
         settings_for_scene(scene, s.replace(radiance_kernel="torch"))
     with pytest.raises(ValueError):
         settings_for_scene(scene, s.replace(traversal="torch"))
-    # Outside K1's scope a CUDA scene runs the wavefront on the card, whose
-    # mesh search is K3/K3b; the fused mesh kernel is the K4 slice.
-    other = settings_for_scene(Scene.analytic(s.replace(use_cornell_box=False), cuda),
-                               s.replace(use_cornell_box=False))
-    assert (other.radiance_kernel, other.traversal) == ("wavefront", "cuda")
-    with pytest.raises(NotImplementedError):
+    # Outside K1's scope a CUDA sphere scene runs K4; the wavefront (whose
+    # mesh search is K3/K3b) only on request.  K4 on a Cornell sphere scene
+    # (K1's) raises.
+    open_s = s.replace(use_cornell_box=False)
+    open_scene = Scene.analytic(open_s, cuda)
+    other = settings_for_scene(open_scene, open_s)
+    assert (other.radiance_kernel, other.traversal) == ("cuda_mesh", "cuda")
+    assert settings_for_scene(open_scene, open_s.replace(
+        radiance_kernel="wavefront")).radiance_kernel == "wavefront"
+    with pytest.raises(ValueError):
         settings_for_scene(scene, s.replace(radiance_kernel="cuda_mesh"))
     with pytest.raises(NotImplementedError):
         k1.render_pass_cuda(scene, s.replace(has_hdr=True), Camera.default(cuda),
                             1, 0.1, 3.0)
 
 
-def test_cornell_scene_beyond_k1_cap_raises(cuda):
-    """A Cornell sphere scene K1 cannot take (more spheres than its
-    shared-memory table holds) raises instead of running the wavefront."""
-    from vrenderer_pathtracer_tpu_torch import interop
+def test_cornell_scene_beyond_smem_spheres_runs_k1(cuda):
+    """A Cornell sphere scene with more spheres than K1 stages in shared
+    memory runs K1, which reads the table from global memory: with the
+    extra spheres beyond the walls it renders the 8-sphere image bit for
+    bit; with them visible it matches the plain version under the golden
+    image contract.  Outside Cornell mode the same spheres run K4."""
+    from chip_smoke import many_spheres
 
-    s = vpt.RenderSettings(**SMALL)
-    n = k1.MAX_SPHERES + 1
+    s = vpt.RenderSettings(width=256, height=256, samples_per_pass=1, bounces=2,
+                           **CORNELL)
+    base = Scene.analytic(s, cuda)
+    cam = Camera.default(cuda)
     rng = np.random.default_rng(0)
-    scene = interop.scene_from_numpy(dict(
-        pos=rng.uniform(-40, 40, (n, 3)), radius=np.full(n, 2.0),
-        emission=np.zeros((n, 3)), color=np.full((n, 3), 0.5),
-        refl=np.ones(n), spec_color=np.zeros((n, 3))), device=cuda)
-    with pytest.raises(NotImplementedError, match="K1"):
-        settings_for_scene(scene, s)
-    # Outside Cornell mode the same spheres run the wavefront on the card.
-    other = settings_for_scene(scene, s.replace(use_cornell_box=False))
-    assert other.radiance_kernel == "wavefront"
+    far = many_spheres(base, k1.SMEM_SPHERES + 88, rng, visible=False)
+    visible = many_spheres(base, k1.SMEM_SPHERES + 88, rng, visible=True)
+    assert settings_for_scene(far, s).radiance_kernel == "cuda"
+    before = k1.launch.count
+    for x, y in zip(k1.render_pass_cuda(far, s, cam, 1, 0.1, 3.0),
+                    k1.render_pass_cuda(base, s, cam, 1, 0.1, 3.0)):
+        assert torch.equal(x, y)
+    got = k1.render_pass_cuda(visible, s, cam, 1, 0.1, 3.0)
+    torch.cuda.synchronize()
+    assert k1.launch.count == before + 3
+    want = k1.render_pass_reference(visible, s, cam, 1, 0.1, 3.0)
+    diff = (got[0] - want[0]).abs().amax(dim=-1)
+    assert (diff > 1e-3).float().mean().item() <= 0.02
+    assert diff.mean().item() <= 2e-3
+    other = settings_for_scene(visible, s.replace(use_cornell_box=False))
+    assert other.radiance_kernel == "cuda_mesh"
 
 
 def test_failed_build_raises(cuda, monkeypatch, tmp_path):
@@ -436,4 +454,127 @@ def test_failed_traverse_build_raises(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
     with pytest.raises(RuntimeError, match="nvcc failed for traverse"):
         build.build("traverse")
+    assert not list(tmp_path.iterdir())
+
+
+# -- K4 -----------------------------------------------------------------------
+
+def _k4_renderer(kind, device, tmp_path, size=64):
+    """A small K4 scene through the Renderer's entry points: the textured
+    1.5k-triangle sphere under an HDRI, the same sphere with a glossy MERL
+    table under lobe MIS, the example sphere with a MERL table (config 4's
+    shape), or the Cornell box with the sphere and a diffuse map."""
+    from chip_smoke import glossy_merl, write_merl
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    obj = tmp_path / "s.obj"
+    if not obj.exists():
+        write_uv_sphere(obj, 14.0, 24, 32)
+    rng = np.random.default_rng(0)
+    hdr = rng.uniform(0, 1.5, (16, 32, 3)).astype(np.float32)
+    tex = rng.uniform(0.1, 1, (32, 32, 3)).astype(np.float32)
+    table = tmp_path / "glossy.binary"
+    write_merl(table, glossy_merl(0.1, (1.0, 0.8, 0.4)))
+    cornell = kind == "cornell mesh texture"
+    r = vpt.Renderer(size, size, settings=vpt.RenderSettings(
+        samples_per_pass=2, bounces=3, use_cornell_box=cornell,
+        has_hdr=not cornell, brdf_importance_sampling=kind == "mesh merl mis"),
+        device=device)
+    if kind == "example sphere merl":
+        r.use_example_sphere(True)
+    else:
+        r.load_mesh(str(obj))
+    if kind in ("textured mesh", "cornell mesh texture"):
+        r.load_texture(tex, 2.2, 0)
+    if not cornell:
+        r.load_hdr(hdr)
+        r.update_camera(origin=(0.0, 0.0, 40.0))
+    if "merl" in kind:
+        r.load_brdf(str(table))
+        r.use_brdf(True)
+    return r
+
+
+K4_KINDS = ["textured mesh", "mesh merl mis", "example sphere merl",
+            "cornell mesh texture"]
+
+
+@pytest.mark.parametrize("kind", K4_KINDS)
+def test_k4_matches_plain_and_repeats_bit_identical(cuda, tmp_path, kind):
+    """K4's records against records_reference under chip_smoke.py's K4
+    contract, and two launches bit-identical."""
+    from chip_smoke import k4_args, k4_contract, k4_readings
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer(kind, cuda, tmp_path)
+    assert r.settings.radiance_kernel == "cuda_mesh"
+    before = k4.launch_k4.count
+    got = k4.launch_k4(*k4_args(r), 1, 0)
+    torch.cuda.synchronize()
+    assert k4.launch_k4.count == before + 1
+    want = k4.records_reference(r.scene, r.settings, r.camera, 1,
+                                r.fresnel_coef, r.fresnel_pow, 0)
+    assert k4_contract(k4_readings(r, got, want), r.settings.use_cornell_box)
+    assert torch.equal(got, k4.launch_k4(*k4_args(r), 1, 0))
+
+
+def test_k4_renderer_runs_k4_each_pass_and_matches_cpu(cuda, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer("textured mesh", cuda, tmp_path)
+    before = (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count)
+    img, depth = r.render_frames(3)
+    assert (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count) == (
+        before[0] + 3, before[1], before[2])
+    cpu = _k4_renderer("textured mesh", "cpu", tmp_path)
+    assert cpu.settings.radiance_kernel == "torch"
+    cimg, cdepth = cpu.render_frames(3)
+    diff = np.abs(img - cimg)  # the golden image contract
+    assert (diff > 1e-3).any(axis=-1).mean() <= 0.02 and diff.mean() <= 2e-3
+    assert (np.abs(depth - cdepth) > 1e-3).mean() <= 0.02
+
+
+def test_k4_refuses_inputs_that_require_grad(cuda, tmp_path):
+    from chip_smoke import k4_args
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer("textured mesh", cuda, tmp_path, size=16)
+    cam, sph, scene, s = k4_args(r)
+    with pytest.raises(ValueError, match="requires grad"):
+        k4.launch_k4(cam.clone().requires_grad_(), sph, scene, s, 1)
+    yaw = r.camera.yaw.clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        k4.render_pass_mesh(scene, s, r.camera.replace(yaw=yaw), 1,
+                            r.fresnel_coef, r.fresnel_pow)
+    with pytest.raises(NotImplementedError):
+        k4.launch_k4(cam, sph, scene, s.replace(has_normal_map=True), 1)
+
+
+def test_deferred_opt_step_runs_k4_on_card(cuda, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer("example sphere merl", cuda, tmp_path, size=32)
+    target, _ = k4.render_pass_mesh(r.scene.replace(hdr=r.scene.hdr * 1.5),
+                                    r.settings, r.camera, 1, r.fresnel_coef,
+                                    r.fresnel_pow)
+    params = vpt.DeferredParams.from_scene(r.scene, hdr=True, brdf=True)
+    for leaf in params.leaves():
+        leaf.requires_grad_()
+    step = vpt.deferred_opt_step(r.settings, torch.optim.Adam(params.leaves(), lr=0.05),
+                                 scene=r.scene)
+    before = k4.launch_k4.count
+    losses = [step(params, r.scene, r.camera, target, 1, r.fresnel_coef,
+                   r.fresnel_pow)[1]["loss"].item() for _ in range(4)]
+    assert k4.launch_k4.count == before + 4
+    assert losses[-1] < losses[0]
+
+
+def test_failed_mesh_build_raises(cuda, monkeypatch, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
+    with pytest.raises(RuntimeError, match="nvcc failed for mesh"):
+        build.build("mesh")
     assert not list(tmp_path.iterdir())

@@ -161,11 +161,11 @@ def test_cpu_mesh_scene_resolves_to_plain_paths(sphere_obj):
     assert (k3.launch_k3.count, k3.launch_k3b.count) == before[1:]
     for kw, err in ((dict(traversal="cuda"), ValueError),
                     (dict(radiance_kernel="wavefront"), ValueError),
-                    (dict(radiance_kernel="cuda_mesh"), NotImplementedError),
+                    (dict(radiance_kernel="cuda_mesh"), ValueError),
                     (dict(captured_attrs=True), NotImplementedError),
                     (dict(sort_rays=True), NotImplementedError),
                     (dict(compact_waves=True), NotImplementedError)):
         with pytest.raises(err):
             settings_for_scene(r.scene, s.replace(**kw))
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(ValueError, match="MERL"):
         Scene(spheres=r.scene.spheres, brdf=torch.zeros(3, 8))

@@ -160,12 +160,14 @@ def test_unsupported_settings_raise():
     from vrenderer_pathtracer_tpu_torch.render import integrator
 
     s = RenderSettings(**PALLAS)
-    for flag in ("has_brdf", "use_brdf", "brdf_importance_sampling",
-                 "compact_waves", "sort_rays", "captured_attrs"):
+    for flag in ("compact_waves", "sort_rays", "captured_attrs"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             integrator.check_scope(s.replace(**{flag: True}))
-    integrator.check_scope(s.replace(use_example_sphere=True, has_mesh=True))
-    with pytest.raises(NotImplementedError, match="K4"):
+    # The MERL flags are in scope: K4 and the wavefront take them.
+    integrator.check_scope(s.replace(use_example_sphere=True, has_mesh=True,
+                                     has_brdf=True, use_brdf=True,
+                                     brdf_importance_sampling=True))
+    with pytest.raises(ValueError, match="MERL"):
         Scene(spheres=Scene.analytic(s, "cpu").spheres, brdf=torch.zeros(3, 8))
 
 

@@ -103,13 +103,30 @@ def test_sync_render_records_stats():
 
 
 @pytest.mark.parametrize("call", [
-    lambda r: r.load_brdf(np.zeros((3, 8), np.float32)),
-    lambda r: r.use_brdf(True),
+    lambda r: r.load_hdr("sky.exr"),
+    lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),
     lambda r: r.toggle_fxaa(True),
 ])
 def test_unported_methods_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_port(4, 4))
+
+
+@pytest.mark.parametrize("call", [
+    lambda r: r.load_brdf(np.ones((3, 90 * 90 * 180), np.float32)),
+    lambda r: r.use_brdf(True),
+])
+def test_brdf_methods_edit_the_scene(call):
+    """``load_brdf`` and ``use_brdf`` are ported: each edits the scene or
+    settings and resets the frame; a table of the wrong shape raises."""
+    r = _port(4, 4)
+    r.render()
+    call(r)
+    assert r.get_frame_count() == 1
+    assert r.settings.has_brdf or r.settings.use_brdf
+    r.render()
+    with pytest.raises(ValueError, match="MERL"):
+        r.load_brdf(np.zeros((3, 8), np.float32))
 
 
 @pytest.fixture(scope="module")

@@ -85,8 +85,13 @@ def test_scatter_fresnel_gradient_flows_through_ratio_trick():
 
 
 def test_measured_brdf_table_raises():
-    z = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError):
-        shading.scatter(z, z, z, z, z, torch.zeros(4, dtype=torch.int32),
-                        z[:, 0], z[:, 0], z[:, 0], 0.1, 3.0,
-                        brdf_table=torch.zeros(3, 8))
+    """A table that is not [3, 90*90*180] raises instead of being read out
+    of bounds (the lookup is tests/test_torch_brdf.py's)."""
+    r = np.random.default_rng(3)
+    d, n = _t(_unit(r, 64)), _t(_unit(r, 64))
+    t = torch.linalg.cross(n, _t(_unit(r, 64)))
+    u = _t(r.uniform(0, 1, (3, 64)).astype(np.float32))
+    ones = torch.ones(64, 3)
+    with pytest.raises(IndexError):
+        shading.scatter(-d, n, t, ones, ones, torch.full((64,), 2, dtype=torch.int32),
+                        u[0], u[1], u[2], 0.1, 3.0, brdf_table=torch.zeros(3, 8))

@@ -2,11 +2,16 @@
 
 A second package beside ``vrenderer_pathtracer_tpu`` (the JAX reference,
 which stays as it is).  It keeps the reference's module layout and names.
-It covers the analytic Cornell scene: the progressive forward render
-(``Renderer``: one hand-written CUDA kernel per pass, ``csrc/radiance.cu``)
-and the training step (``parallel/sharding.py``: ``train_step`` and
-``opt_step``, whose loss and gradients come from one hand-written CUDA
-kernel, ``csrc/grad.cu``).  Entry points run on the card unless the caller
+It covers the progressive forward render (``Renderer``): the analytic
+Cornell scene through one hand-written CUDA kernel a pass
+(``csrc/radiance.cu``), general mesh, example-sphere, HDRI, texture and
+MERL scenes through the fused kernel ``csrc/mesh.cu`` and its torch
+epilogue, and the rest through the torch wavefront with the BVH kernels of
+``csrc/traverse.cu``; the Cornell training step (``parallel/sharding.py``:
+``train_step`` and ``opt_step``, whose loss and gradients come from
+``csrc/grad.cu``); and the deferred-table step ``deferred_opt_step`` (HDRI,
+diffuse map and MERL table, by autograd through the fused kernel's
+epilogue).  Entry points run on the card unless the caller
 passes ``device="cpu"``; on the CPU the same API runs the plain PyTorch
 integrator and autograd.  The package never imports jax.
 """
@@ -18,7 +23,8 @@ from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.render.renderer import Renderer
 from vrenderer_pathtracer_tpu_torch.parallel.sharding import (
-    TrainParams, opt_step, train_step)
+    DeferredParams, TrainParams, deferred_opt_step, opt_step, train_step)
 
 __all__ = ["RenderSettings", "Camera", "Scene", "Renderer", "TrainParams",
-           "train_step", "opt_step", "__version__"]
+           "DeferredParams", "train_step", "opt_step", "deferred_opt_step",
+           "__version__"]

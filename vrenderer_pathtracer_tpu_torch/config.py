@@ -5,11 +5,11 @@ kept as a separate copy because importing the JAX package imports jax.  In
 the port the settings select code paths at call time (PyTorch runs
 eagerly); nothing is recompiled when they change.
 
-Fields that belong to parts of the JAX package not ported yet (mesh
-traversal, compact bounce waves, textures, MERL importance sampling) are
-kept so a settings object can be handed from one package to the other;
-the port raises ``NotImplementedError`` where one of them asks for a path it
-does not have.
+Fields that belong to parts of the JAX package not ported yet (compact
+bounce waves, ray sorting, attribute capture, FXAA) are kept so a settings
+object can be handed from one package to the other; the port raises
+``NotImplementedError`` where one of them asks for a path it does not
+have.
 """
 
 from __future__ import annotations
@@ -29,9 +29,13 @@ class RenderSettings:
     * ``gamma``            — display gamma
     * ``depth_scale``      — depth normalisation (first-hit distance / 150)
     * ``radiance_kernel``  — forward backend: ``"auto"`` resolves in
-      ``scene.settings_for_scene`` to ``"cuda"`` (hand-written kernel,
-      ``render/cuda_radiance.py``) for CUDA-resident Cornell scenes, or
-      ``"torch"`` (plain integrator) for CPU-resident scenes.
+      ``scene.settings_for_scene``, for a CUDA-resident scene, to
+      ``"cuda"`` (K1, ``render/cuda_radiance.py``) for Cornell sphere
+      scenes, else ``"cuda_mesh"`` (K4, ``render/cuda_mesh.py``) for the
+      general scenes it covers, else ``"wavefront"`` (the integrator with
+      the K3/K3b mesh search); and to ``"torch"`` (the plain integrator)
+      for a CPU-resident scene.  An explicit value must be the one the
+      scene resolves to.
     """
 
     width: int = 512

@@ -1,8 +1,9 @@
-// Device code shared by the Cornell kernels K1 (radiance.cu) and K2
-// (grad.cu): the threefry-2x32 draw stream, the FMA-guarded primary ray and
-// running-min sphere test, the material scatter of one bounce, and the
-// bounce loop of one sample (trace).  Both kernels trace with this one
-// loop, so K2's forward pass computes what K1 renders.
+// Device code shared by the kernels K1 (radiance.cu), K2 (grad.cu) and K4
+// (mesh.cu): the threefry-2x32 draw stream, the FMA-guarded primary ray and
+// running-min sphere test, the sphere table's staging, the material scatter
+// of one bounce, and the Cornell bounce loop of one sample (trace).  K1 and
+// K2 trace with this one loop, so K2's forward pass computes what K1
+// renders; K4 runs its own loop over the same pieces.
 //
 // Numerics.  Built without --use_fast_math: IEEE sqrt and division.  The
 // sphere test and the primary ray use explicit round-to-nearest intrinsics
@@ -27,6 +28,9 @@ constexpr int kCols = 14;  // pos xyz, radius, color rgb, emission rgb, spec rgb
 constexpr int kSpec = 0;
 constexpr int kDiff = 1;
 constexpr int kBrdf = 2;
+// Spheres staged in shared memory (render/cuda_radiance.py SMEM_SPHERES):
+// 512 x 56 bytes sits inside the 48 KB a block takes without opting in.
+constexpr int kSmemSpheres = 512;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -149,6 +153,27 @@ __device__ __forceinline__ int nearest_sphere(const float* sph, int n_spheres,
   return best;
 }
 
+// The sphere table the block reads: staged in shared memory (`smem`, which
+// holds kSmemSpheres rows) when it fits, read from global memory (through
+// the caches) when it does not.  Every thread of the block must call it.
+__device__ __forceinline__ const float* stage_spheres(float* smem,
+                                                      const float* spheres,
+                                                      int n_spheres) {
+  if (n_spheres > kSmemSpheres) return spheres;
+  for (int i = threadIdx.x; i < n_spheres * kCols; i += blockDim.x) {
+    smem[i] = spheres[i];
+  }
+  __syncthreads();
+  return smem;
+}
+
+// Bytes of shared memory a launch gives stage_spheres.
+inline size_t sphere_smem_bytes(int n_spheres) {
+  return n_spheres > kSmemSpheres
+             ? 0
+             : sizeof(float) * kCols * static_cast<size_t>(n_spheres);
+}
+
 // The cosine-sample frame about the unit normal n: u = normalize(cross(axis,
 // n)) with the axis flipping on |n.x| > 0.1, and v = cross(n, u).  Returns
 // |cross(axis, n)| before normalising.
@@ -176,6 +201,7 @@ struct Scatter {
   float ndx, ndy, ndz;  // direction of the next ray
   float tr, tg, tb;     // throughput multiplier
   float cp, spn, wz;    // cosine sample = u*cp + v*spn + n*wz, normalised
+  float cdx, cdy, cdz;  // that cosine sample
   float cos2;           // 2 * dot(cosine sample, n)
   float one_m_aoi;      // max(1 - aoi, 0), aoi = -dot(d, n)  (DIFF only)
   float grazing;        // one_m_aoi ^ fresnel_pow            (DIFF only)
@@ -183,28 +209,19 @@ struct Scatter {
   bool take_reflect;    // DIFF took its Fresnel mirror branch
 };
 
-// hs is the winner's table row; (s, b) the sample and bounce of the draws.
-// SPEC: mirror direction (not normalised), throughput unchanged.  DIFF:
-// stochastic Fresnel mix; the mirror branch is weighted by the per-channel
-// specular colour, the cosine branch by albedo * cos2.  BRDF (no table): the
-// cosine branch alone.
-__device__ __forceinline__ Scatter scatter(
-    const float* hs, float best_t, float ox, float oy, float oz, float dx,
-    float dy, float dz, uint32_t seed_lo, uint32_t seed_hi, uint32_t pixel,
-    uint32_t frame, uint32_t s, uint32_t b, float fc, float fp) {
-  Scatter r;
-  r.px = __fadd_rn(ox, __fmul_rn(dx, best_t));
-  r.py = __fadd_rn(oy, __fmul_rn(dy, best_t));
-  r.pz = __fadd_rn(oz, __fmul_rn(dz, best_t));
-  r.nx = r.px - hs[0];
-  r.ny = r.py - hs[1];
-  r.nz = r.pz - hs[2];
-  normalize(r.nx, r.ny, r.nz);
-
-  float u_reflect, unused, u_phi, u_r;
-  draw(seed_lo, seed_hi, pixel, frame, s, b, 0, u_reflect, unused);
-  draw(seed_lo, seed_hi, pixel, frame, s, b, 1, u_phi, u_r);
-
+// The material interaction at a hit whose point (r.px, ...) and unit
+// normal (r.nx, ...) are set: col and spec are the surface's albedo and
+// specular colour, refl its type, (dx, dy, dz) the incoming ray and
+// u_reflect, u_phi, u_r the bounce's draws.  SPEC: mirror direction (not
+// normalised), throughput unchanged.  DIFF: stochastic Fresnel mix; the
+// mirror branch is weighted by the per-channel specular colour, the cosine
+// branch by albedo * cos2.  BRDF: the cosine branch alone (a measured
+// table's factor is the caller's).
+__device__ __forceinline__ void shade(Scatter& r, const float* col,
+                                      const float* spec, int refl, float dx,
+                                      float dy, float dz, float u_reflect,
+                                      float u_phi, float u_r, float fc,
+                                      float fp) {
   // Mirror direction (not normalised for SPEC).
   const float two_ddn = 2.f * (dx * r.nx + dy * r.ny + dz * r.nz);
   const float rfx = dx - two_ddn * r.nx;
@@ -224,31 +241,52 @@ __device__ __forceinline__ Scatter scatter(
   float cdy = uy * r.cp + vy * r.spn + r.ny * r.wz;
   float cdz = uz * r.cp + vz * r.spn + r.nz * r.wz;
   normalize(cdx, cdy, cdz);
+  r.cdx = cdx; r.cdy = cdy; r.cdz = cdz;
   r.cos2 = (cdx * r.nx + cdy * r.ny + cdz * r.nz) * 2.f;
 
   r.one_m_aoi = r.grazing = r.fresnel = 0.f;
   r.take_reflect = false;
-  const int refl = static_cast<int>(hs[13]);
   if (refl == kSpec) {
     r.ndx = rfx; r.ndy = rfy; r.ndz = rfz;
     r.tr = r.tg = r.tb = 1.f;
-    return r;
+    return;
   }
   if (refl != kBrdf) {  // DIFF: stochastic Fresnel mix
     const float aoi = -(dx * r.nx + dy * r.ny + dz * r.nz);
     r.one_m_aoi = fmaxf(1.f - aoi, 0.f);
     r.grazing = powf(r.one_m_aoi, fp);
-    r.fresnel = (r.grazing * (1.f - fc) + fc) * hs[10];
+    r.fresnel = (r.grazing * (1.f - fc) + fc) * spec[0];
     r.take_reflect = u_reflect < r.fresnel;
   }
   if (r.take_reflect) {
     r.ndx = rfx; r.ndy = rfy; r.ndz = rfz;
     normalize(r.ndx, r.ndy, r.ndz);
-    r.tr = hs[10]; r.tg = hs[11]; r.tb = hs[12];
+    r.tr = spec[0]; r.tg = spec[1]; r.tb = spec[2];
   } else {
     r.ndx = cdx; r.ndy = cdy; r.ndz = cdz;
-    r.tr = hs[4] * r.cos2; r.tg = hs[5] * r.cos2; r.tb = hs[6] * r.cos2;
+    r.tr = col[0] * r.cos2; r.tg = col[1] * r.cos2; r.tb = col[2] * r.cos2;
   }
+}
+
+// hs is the winner's table row; (s, b) the sample and bounce of the draws.
+__device__ __forceinline__ Scatter scatter(
+    const float* hs, float best_t, float ox, float oy, float oz, float dx,
+    float dy, float dz, uint32_t seed_lo, uint32_t seed_hi, uint32_t pixel,
+    uint32_t frame, uint32_t s, uint32_t b, float fc, float fp) {
+  Scatter r;
+  r.px = __fadd_rn(ox, __fmul_rn(dx, best_t));
+  r.py = __fadd_rn(oy, __fmul_rn(dy, best_t));
+  r.pz = __fadd_rn(oz, __fmul_rn(dz, best_t));
+  r.nx = r.px - hs[0];
+  r.ny = r.py - hs[1];
+  r.nz = r.pz - hs[2];
+  normalize(r.nx, r.ny, r.nz);
+
+  float u_reflect, unused, u_phi, u_r;
+  draw(seed_lo, seed_hi, pixel, frame, s, b, 0, u_reflect, unused);
+  draw(seed_lo, seed_hi, pixel, frame, s, b, 1, u_phi, u_r);
+  shade(r, hs + 4, hs + 10, static_cast<int>(hs[13]), dx, dy, dz, u_reflect,
+        u_phi, u_r, fc, fp);
   return r;
 }
 

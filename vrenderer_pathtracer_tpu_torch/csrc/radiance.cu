@@ -19,8 +19,10 @@
 //   * one thread per pixel, all path state in registers, no intermediate in
 //     device memory (the TPU kernel's (8,128) tiles and n%1024 padding are
 //     gone; a bounds check on the pixel id replaces them);
-//   * the sphere table [Ns,14] staged once per block in shared memory: every
-//     thread reads the same sphere at the same step, so reads broadcast;
+//   * the sphere table [Ns,14] staged once per block in shared memory when
+//     it holds at most 512 spheres, and read from global memory through the
+//     caches when it is larger (common.cuh stage_spheres): every thread
+//     reads the same sphere at the same step, so reads broadcast;
 //   * the threefry stream salts computed in registers from (frame, sample,
 //     bounce, slot), not read from a table;
 //   * a path that has missed leaves its bounce loop: its later bounces add
@@ -49,11 +51,8 @@ radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres
                 uint32_t frame, int width, int height, int spp, int bounces,
                 float depth_scale, float* __restrict__ rgb,
                 float* __restrict__ depth_out) {
-  extern __shared__ float sph[];  // [n_spheres, kCols]
-  for (int i = threadIdx.x; i < n_spheres * kCols; i += blockDim.x) {
-    sph[i] = spheres[i];
-  }
-  __syncthreads();
+  extern __shared__ float smem[];  // [n_spheres, kCols] when they fit
+  const float* sph = stage_spheres(smem, spheres, n_spheres);
 
   const int n = width * height;
   const int pixel = blockIdx.x * blockDim.x + threadIdx.x;
@@ -103,7 +102,7 @@ extern "C" int vpt_radiance(const void* cam, const void* spheres,
                             void* stream) {
   const int n = width * height;
   const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * kCols * static_cast<size_t>(n_spheres);
+  const size_t smem = sphere_smem_bytes(n_spheres);
   radiance_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cam), static_cast<const float*>(spheres),
       n_spheres, seed_lo, seed_hi, frame, width, height, spp, bounces,

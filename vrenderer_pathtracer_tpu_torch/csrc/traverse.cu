@@ -39,6 +39,10 @@
 //   * a ray with t_max <= 0 (the integrator's dead lanes) returns at once:
 //     no triangle at t > TRI_EPS can be closer.
 //
+// K3's per-ray search is traverse.cuh's traverse_wide, the device function
+// K4 (mesh.cu) calls at every bounce; the helpers of both kernels live there
+// too.
+//
 // Numerics: built without --use_fast_math (IEEE division).  The slab test is
 // a subtract and a multiply per plane, which nvcc cannot contract.  The
 // triangle test's determinant, u, v and t are sums of products, which nvcc
@@ -47,82 +51,13 @@
 // itself compiled PyTorch code, and cost 6% of K3 (measured on an H100 80GB
 // HBM3 at 700 W by chip_smoke.py, PERF.md), so the test is left to nvcc.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "traverse.cuh"
 
 namespace {
 
-constexpr float kTriEps = 1e-7f;   // accel/traverse.py TRI_EPS
-constexpr int kMaxLeaf = 8;        // accel/mesh.py MAX_LEAF
-constexpr int kStack = 96;         // accel/mesh.py STACK_DEPTH
-constexpr int kWideStack = 256;    // accel/mesh.py WIDE_STACK_DEPTH
+using namespace vpt;
+
 constexpr int kThreads = 128;
-
-struct Ray {
-  float o[3], d[3], inv[3];
-};
-
-// Work counters of one ray: node visits, box (slab) tests, triangle tests.
-struct Work {
-  unsigned visits = 0, boxes = 0, tris = 0;
-};
-
-__device__ __forceinline__ float guarded_inv(float d) {
-  return 1.0f / (fabsf(d) > 1e-12f ? d : (d >= 0.f ? 1e-12f : -1e-12f));
-}
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ ray_o,
-                                        const float* __restrict__ ray_d,
-                                        int i) {
-  Ray r;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    r.o[k] = __ldg(ray_o + 3 * i + k);
-    r.d[k] = __ldg(ray_d + 3 * i + k);
-    r.inv[k] = guarded_inv(r.d[k]);
-  }
-  return r;
-}
-
-// accel/traverse.py::_slab_test: hit iff max(t_near, 0) <= min(t_far, best).
-__device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
-                                     float hx, float hy, float hz, float best,
-                                     float& t_near) {
-  const float t0x = (lx - r.o[0]) * r.inv[0], t1x = (hx - r.o[0]) * r.inv[0];
-  const float t0y = (ly - r.o[1]) * r.inv[1], t1y = (hy - r.o[1]) * r.inv[1];
-  const float t0z = (lz - r.o[2]) * r.inv[2], t1z = (hz - r.o[2]) * r.inv[2];
-  t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  const float t_far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  return fmaxf(t_near, 0.f) <= fminf(t_far, best);
-}
-
-// accel/traverse.py::_moller_trumbore for one triangle; true and the hit
-// distance in `t` iff the ray hits it at t > TRI_EPS.
-__device__ __forceinline__ bool moller_trumbore(const Ray& r, const float v0[3],
-                                                const float e1[3], const float e2[3],
-                                                float& t) {
-  const float* d = r.d;
-  const float px = d[1] * e2[2] - d[2] * e2[1];
-  const float py = d[2] * e2[0] - d[0] * e2[2];
-  const float pz = d[0] * e2[1] - d[1] * e2[0];
-  const float det = e1[0] * px + e1[1] * py + e1[2] * pz;
-  if (!(fabsf(det) > kTriEps)) return false;
-  const float inv_det = 1.0f / det;
-  const float tx = r.o[0] - v0[0], ty = r.o[1] - v0[1], tz = r.o[2] - v0[2];
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1[2] - tz * e1[1];
-  const float qy = tz * e1[0] - tx * e1[2];
-  const float qz = tx * e1[1] - ty * e1[0];
-  const float v = (d[0] * qx + d[1] * qy + d[2] * qz) * inv_det;
-  t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det;
-  return u >= 0.f && v >= 0.f && u + v <= 1.f && t > kTriEps;
-}
-
-__device__ __forceinline__ void push(int* stack, int& sp, int cap, int node) {
-  // accel/mesh.py checks at pack time that a tree never needs more than
-  // `cap` entries; the guard keeps a violated bound inside the array.
-  if (sp < cap) stack[sp++] = node;
-}
 
 __device__ __forceinline__ void add_work(unsigned long long* stats, const Work& w) {
   if (stats == nullptr) return;
@@ -131,10 +66,7 @@ __device__ __forceinline__ void add_work(unsigned long long* stats, const Work& 
   atomicAdd(stats + 2, static_cast<unsigned long long>(w.tris));
 }
 
-// K3: the 8-wide BVH.  boxes [N*8, 8] (child c of node w at row w*8+c: lo
-// xyz, hi xyz, 0, 0), records [N, 16] (8 x (ref, count); count 0 inner, > 0
-// leaf rows of `pack`, < 0 empty), axes [N], pack [T8, 16] (v0, e1, e2,
-// slot, uv corners).
+// K3: the 8-wide BVH (layout: traverse.cuh traverse_wide).
 __global__ void __launch_bounds__(kThreads)
 traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
                      const int* __restrict__ axes, const float* __restrict__ pack,
@@ -145,67 +77,16 @@ traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ re
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float tmax = __ldg(t_max + i);
-  float best_t = tmax;
-  int best_slot = -1;
   Work w;
+  Hit h;
   if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
-    const Ray r = load_ray(ray_o, ray_d, i);
-    int stack[kWideStack];
-    int sp = 1;
-    stack[0] = 0;
-    while (sp > 0) {
-      const int node = stack[--sp];
-      ++w.visits;
-      const int ax = __ldg(axes + node);
-      const float d_ax = ax == 0 ? r.d[0] : (ax == 1 ? r.d[1] : r.d[2]);
-      const int flip = d_ax >= 0.f ? 0 : 7;  // children near to far
-      const float* bx = boxes + 64 * node;
-      const int2* rec = reinterpret_cast<const int2*>(recs) + 8 * node;
-      unsigned inner = 0, leaves = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int c = k ^ flip;
-        const int cnt = __ldg(&rec[c].y);
-        if (cnt < 0) continue;
-        ++w.boxes;
-        const float4 a = __ldg(reinterpret_cast<const float4*>(bx + 8 * c));
-        const float2 b = __ldg(reinterpret_cast<const float2*>(bx + 8 * c + 4));
-        float tn;
-        if (slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best_t, tn)) {
-          (cnt == 0 ? inner : leaves) |= 1u << c;
-        }
-      }
-      // The hit leaves, near to far, through one copy of the triangle test.
-#pragma unroll 1
-      for (int k = 0; k < 8; ++k) {
-        const int c = k ^ flip;
-        if (!(leaves >> c & 1u)) continue;
-        const int2 rc = __ldg(rec + c);  // (ref, count)
-        const int cnt = min(rc.y, kMaxLeaf);
-        for (int j = 0; j < cnt; ++j) {
-          const float4* row = reinterpret_cast<const float4*>(pack) + 4 * (rc.x + j);
-          const float4 p0 = __ldg(row), p1 = __ldg(row + 1), p2 = __ldg(row + 2);
-          const float v0[3] = {p0.x, p0.y, p0.z};
-          const float e1[3] = {p0.w, p1.x, p1.y};
-          const float e2[3] = {p1.z, p1.w, p2.x};
-          ++w.tris;
-          float t;
-          if (moller_trumbore(r, v0, e1, e2, t) && t < best_t) {
-            best_t = t;
-            best_slot = __float2int_rn(p2.y);
-          }
-        }
-      }
-      // Push the inner children far to near, so the nearest pops first.
-#pragma unroll
-      for (int k = 7; k >= 0; --k) {
-        const int c = k ^ flip;
-        if (inner >> c & 1u) push(stack, sp, kWideStack, __ldg(&rec[c].x));
-      }
-    }
+    h = traverse_wide(boxes, recs, axes, pack, load_ray(ray_o, ray_d, i), tmax, w);
+  } else {
+    h.slot = -1;
+    h.t = tmax;
   }
-  slot_out[i] = best_slot;
-  t_out[i] = best_t;
+  slot_out[i] = h.slot;
+  t_out[i] = h.t;
   add_work(stats, w);
 }
 
@@ -259,8 +140,8 @@ traverse_binary_kernel(const float* __restrict__ nodes_f,
           const float e1[3] = {__ldg(te1 + 3 * s), __ldg(te1 + 3 * s + 1), __ldg(te1 + 3 * s + 2)};
           const float e2[3] = {__ldg(te2 + 3 * s), __ldg(te2 + 3 * s + 1), __ldg(te2 + 3 * s + 2)};
           ++w.tris;
-          float t;
-          if (moller_trumbore(r, v0, e1, e2, t) && t < best_t) {
+          float t, u, v;
+          if (moller_trumbore(r, v0, e1, e2, t, u, v) && t < best_t) {
             best_t = t;
             best_slot = s;
           }

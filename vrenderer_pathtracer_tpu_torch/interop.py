@@ -2,8 +2,9 @@
 parameters into the port's.
 
 The functions take plain numpy leaves, ``{name: np.asarray(leaf)}`` of a
-JAX ``SphereSet``, ``MeshData``, ``Camera`` or ``TrainParams``
-(``obj._asdict()``), and numpy arrays for the HDRI and the maps, so this
+JAX ``SphereSet``, ``MeshData``, ``Camera``, ``TrainParams`` or
+``DeferredParams`` (``obj._asdict()``), and numpy arrays for the HDRI, the
+maps and the MERL table, so this
 module imports neither package's JAX code.  Both packages then render, and
 differentiate, the same scene.
 """
@@ -16,8 +17,8 @@ import numpy as np
 import torch
 
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
-from vrenderer_pathtracer_tpu_torch.parallel.sharding import TrainParams
-from vrenderer_pathtracer_tpu_torch.scene.scene import K4_SLICE, MeshData, Scene
+from vrenderer_pathtracer_tpu_torch.parallel.sharding import DeferredParams, TrainParams
+from vrenderer_pathtracer_tpu_torch.scene.scene import TRAIN_HDR_ITEM, MeshData, Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
 
 
@@ -34,9 +35,9 @@ def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
 
     Only the sparse single-level layout converts: a paged or lane-dense JAX
     mesh is a TPU layout and raises.  The 8-wide tree is held to K3's stack
-    bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  K4's
-    deferred-fetch packs (``tri_aux_pack``, ``tri_nrm_pack``) are not
-    carried: no code of the port reads them yet.
+    bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  The
+    TPU kernel's win-time capture packs (``tri_aux_pack``,
+    ``tri_nrm_pack``) are not carried: K4 reads tangents and uvs by slot.
     """
     from vrenderer_pathtracer_tpu_torch.accel.mesh import (
         _check_stack_bound, _check_wide_stack_bound, binary_depth, wide_depth)
@@ -77,9 +78,11 @@ def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
 
 def scene_from_numpy(spheres: Mapping[str, np.ndarray], *, device, hdr=None,
                      diffuse_map=None, normal_map=None, specular_map=None,
+                     brdf=None,
                      mesh: Mapping[str, np.ndarray] | None = None) -> Scene:
     """A port ``Scene`` from a JAX ``SphereSet``'s leaves, the JAX scene's
-    HDRI and maps as arrays, and its mesh's leaves (:func:`mesh_from_numpy`).
+    HDRI, maps and MERL table as arrays, and its mesh's leaves
+    (:func:`mesh_from_numpy`).
     """
     return Scene(
         spheres=SphereSet(
@@ -95,6 +98,7 @@ def scene_from_numpy(spheres: Mapping[str, np.ndarray], *, device, hdr=None,
         diffuse_map=_opt_f32(diffuse_map, device),
         normal_map=_opt_f32(normal_map, device),
         specular_map=_opt_f32(specular_map, device),
+        brdf=_opt_f32(brdf, device),
         mesh=None if mesh is None else mesh_from_numpy(mesh, device=device),
     )
 
@@ -114,11 +118,12 @@ def train_params_from_numpy(params: Mapping, *, device) -> TrainParams:
     """A port ``TrainParams`` from a JAX ``TrainParams``'s leaves.
 
     ``camera`` is None or a JAX ``Camera``'s leaves, as for
-    :func:`camera_from_numpy`.  A trainable environment map (``hdr``)
-    belongs to the K4 slice (mesh-scene gradients).
+    :func:`camera_from_numpy`.  A trainable environment map in
+    ``TrainParams`` (``hdr``, trained through the XLA integrator there) is
+    not ported; a ``DeferredParams`` HDRI is (:func:`deferred_params_from_numpy`).
     """
     if params.get("hdr") is not None:
-        raise NotImplementedError(f"trainable hdr: {K4_SLICE}")
+        raise NotImplementedError(f"TrainParams.hdr: {TRAIN_HDR_ITEM}")
     camera = params.get("camera")
     return TrainParams(
         color=_f32(params["color"], device),
@@ -128,3 +133,10 @@ def train_params_from_numpy(params: Mapping, *, device) -> TrainParams:
         camera=None if camera is None else camera_from_numpy(camera,
                                                              device=device),
     )
+
+
+def deferred_params_from_numpy(params: Mapping, *, device) -> DeferredParams:
+    """A port ``DeferredParams`` from a JAX ``DeferredParams``'s leaves
+    (``hdr``, ``diffuse_map``, ``brdf``; each None or an array)."""
+    return DeferredParams(**{k: _opt_f32(params.get(k), device)
+                             for k in ("hdr", "diffuse_map", "brdf")})

@@ -1,11 +1,11 @@
 """ctypes bindings for the port's host library (SBVH builder + mesh loaders).
 
 The same C ABI and the same Python surface as the JAX package's ``native``
-module, for the parts the mesh path needs: OBJ and PLY import and the SBVH
-build.  The library is built from ``native/csrc`` at first use
-(``native/build.py``).  EXR, FBX and MERL loading and the dense paged
-builder are not bound: HDRIs come in as arrays, and FBX, MERL and the paged
-layout belong to later slices (ROADMAP Queue 1 items 9 and 11).
+module, for the parts the mesh and MERL paths need: OBJ and PLY import, the
+SBVH build and the MERL-100 binary reader.  The library is built from
+``native/csrc`` at first use (``native/build.py``).  EXR and FBX loading and
+the dense paged builder are not bound: HDRIs come in as arrays, and FBX and
+the paged layout belong to later slices (ROADMAP Queue 1 items 11 and 12).
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ def _load() -> ctypes.CDLL:
     for fn in (lib.vt_load_obj, lib.vt_load_ply):
         fn.restype = ctypes.c_int
         fn.argtypes = loader_args
+    lib.vt_load_merl.restype = ctypes.c_int
+    lib.vt_load_merl.argtypes = [ctypes.c_char_p, ctypes.POINTER(_c_fp), _c_ip]
     lib.vt_free.restype = None
     lib.vt_free.argtypes = [ctypes.c_void_p]
     return lib
@@ -54,6 +56,12 @@ _PLY_ERRORS = {
     2: "truncated or invalid geometry",
     3: "unsupported PLY flavour (need ascii or binary_little_endian 1.0 "
        "with x/y/z vertex properties)",
+}
+_MERL_ERRORS = {
+    1: "cannot open file",
+    2: "truncated header (expected 3 int32 dims)",
+    3: "wrong dimensions (MERL tables must be 90x90x180)",
+    4: "truncated data (expected 3*90*90*180 doubles)",
 }
 
 
@@ -134,6 +142,18 @@ def load_mesh_file(path: str) -> HostMesh:
             f"load_mesh_file({path}): FBX import is not ported; convert to "
             "OBJ or PLY")
     raise IOError(f"load_mesh_file({path}): unknown mesh format")
+
+
+def load_merl(path: str) -> np.ndarray:
+    """A MERL-100 ``.binary`` as a [3, 90*90*180] float32 table (the
+    per-channel scales are applied by ``ops/brdf.py``, not here)."""
+    lib = _load()
+    pd, n = _c_fp(), ctypes.c_int()
+    rc = lib.vt_load_merl(str(path).encode(), ctypes.byref(pd), ctypes.byref(n))
+    if rc != 0:
+        raise IOError(f"load_merl({path}): "
+                      f"{_MERL_ERRORS.get(rc, f'unknown error {rc}')} (code {rc})")
+    return _take(pd, (3, n.value), np.float32, lib)
 
 
 def build_sbvh(verts: np.ndarray, tris: np.ndarray,

@@ -6,8 +6,9 @@
   ``f = lerp((1-cos)^p, 1, c) * spec_color.x``; with probability ``f`` a
   normalised mirror reflection weighted by the specular colour, otherwise a
   cosine-weighted hemisphere sample weighted by ``albedo * cos * 2``.
-* BRDF (type 2) without a table: the cosine sample with the diffuse weight.
-  Measured tables belong to the K4 slice and raise here.
+* BRDF (type 2): the cosine sample; with a MERL table the weight is
+  ``24 * max(merl_lookup, 0)``, or with a sampler the one-sample lobe MIS of
+  ``ops/brdf_sampling.py``; without a table the diffuse weight.
 
 The Fresnel comparison ``u < f`` is discrete, so the chosen branch's weight
 is scaled by the ratio ``p / p.detach()``: its value is 1, and its gradient
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from vrenderer_pathtracer_tpu_torch.ops.brdf import lookup_brdf
 from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF, SPEC
 
 ORIGIN_OFFSET = 0.05  # the next ray starts 0.05*n off the surface
@@ -58,18 +60,18 @@ def cosine_hemisphere(normal, u1, u2):
 
 def scatter(ray_d, normal, tangent, color, spec_color, hit_type,
             u_reflect, u_phi, u_r, fresnel_coef, fresnel_pow,
-            brdf_table=None):
+            brdf_table=None, brdf_sampler=None, u_b1=None, u_b2=None):
     """One bounce of material interaction for a [B] lane batch.
 
     Returns ``(new_dir [B,3], mask_mult [B,3])``; the caller moves the origin
     to ``hit + ORIGIN_OFFSET * normal`` and multiplies throughput by
-    ``mask_mult``.  ``tangent`` is accepted for signature parity; only the
-    measured-BRDF path reads it.
-    """
-    if brdf_table is not None:
-        from vrenderer_pathtracer_tpu_torch.scene.scene import K4_SLICE
+    ``mask_mult``.  ``tangent`` is read only by the measured-BRDF lookup.
 
-        raise NotImplementedError(f"measured BRDF tables: {K4_SLICE}")
+    With ``brdf_sampler`` and the two extra uniforms ``u_b1``/``u_b2``, BRDF
+    lanes take the one-sample lobe MIS instead of the cosine sample;
+    ``u_reflect`` selects the strategy there and ``u_phi`` is the lobe's
+    azimuth (each lane takes one branch).
+    """
     mirror_dir = reflect(ray_d, normal)          # SPEC: not normalised
     fresnel_dir = _norm(mirror_dir)              # DIFF specular: normalised
     cos_dir = cosine_hemisphere(normal, u_phi, u_r)
@@ -90,10 +92,24 @@ def scatter(ray_d, normal, tangent, color, spec_color, hit_type,
     diff_mult = torch.where(take_reflect, spec_color * w_reflect[:, None],
                             diffuse_weight * w_diffuse[:, None])
 
+    # --- BRDF: measured reflectance about a cosine (or lobe MIS) sample ---
+    brdf_dir = cos_dir
+    if brdf_table is not None and brdf_sampler is not None:
+        from vrenderer_pathtracer_tpu_torch.ops.brdf_sampling import sample_brdf_mis
+
+        brdf_dir, brdf_mult = sample_brdf_mis(
+            brdf_sampler, brdf_table, ray_d, normal, tangent, cos_dir,
+            u_reflect, u_b1, u_b2, u_phi)
+    elif brdf_table is not None:
+        brdf_val = lookup_brdf(brdf_table, cos_dir, ray_d, normal, tangent)
+        brdf_mult = 24.0 * torch.clamp(brdf_val, min=0.0)
+    else:
+        brdf_mult = diffuse_weight
+
     is_spec = (hit_type == SPEC)[:, None]
     is_brdf = (hit_type == BRDF)[:, None]
     new_dir = torch.where(is_spec, mirror_dir,
-                          torch.where(is_brdf, cos_dir, diff_dir))
+                          torch.where(is_brdf, brdf_dir, diff_dir))
     mask_mult = torch.where(is_spec, torch.ones_like(diff_mult),
-                            torch.where(is_brdf, diffuse_weight, diff_mult))
+                            torch.where(is_brdf, brdf_mult, diff_mult))
     return new_dir, mask_mult

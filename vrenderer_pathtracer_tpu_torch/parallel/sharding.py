@@ -6,11 +6,17 @@
 * ``train_step`` — an SGD step ``p - lr * g``, the twin of
   ``sharded_train_step``;
 * ``opt_step`` — a step of a ``torch.optim`` optimiser, the twin of
-  ``sharded_opt_step`` (optax there).
+  ``sharded_opt_step`` (optax there);
+* ``DeferredParams`` / ``apply_deferred`` / ``deferred_opt_step`` — the
+  table-valued parameters (HDRI, diffuse map, MERL table) and an optimiser
+  step on them, the twin of ``sharded_deferred_opt_step``.
 
-Both steps take their loss and gradients from
+``train_step`` and ``opt_step`` take their loss and gradients from
 ``render/cuda_grad.py::cornell_loss``: K2 on the card, plain autograd on
-the CPU.  They run on one device; the ``torch.distributed`` sharding of the
+the CPU.  ``deferred_opt_step`` keeps the scene's resolved backend (K4 on
+the card where it covers the scene): the tables enter only K4's epilogue
+(``render/cuda_mesh.py::compose``), so autograd through it gives their
+gradients without a backward kernel.  The steps run on one device; the ``torch.distributed`` sharding of the
 JAX module (tile x sample, gradient all-reduce) is ROADMAP Queue 1 item 13
 and comes into this module later.  The JAX steps return new arrays; the
 optimiser step here updates the leaves it holds in place, as ``torch.optim``
@@ -27,7 +33,7 @@ import torch
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.render.cuda_grad import cornell_loss
-from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+from vrenderer_pathtracer_tpu_torch.scene.scene import Scene, settings_for_scene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +148,80 @@ def opt_step(settings: RenderSettings, optimizer: torch.optim.Optimizer, *,
         with torch.enable_grad():
             loss = cornell_loss(params, scene, settings, camera, target,
                                 frame, seed)
+            loss.backward()
+        grads = [t.grad for t in params.leaves() if t.grad is not None]
+        metrics = {"loss": loss.detach(), "grad_global_norm": _global_norm(grads)}
+        optimizer.step()
+        return params, metrics
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class DeferredParams:
+    """Table-valued scene parameters whose gradients bypass the kernels: the
+    HDRI, the diffuse map and the MERL table, each None (not trained) or a
+    float32 tensor."""
+
+    hdr: Optional[torch.Tensor] = None          # [H,W,3] environment map
+    diffuse_map: Optional[torch.Tensor] = None  # [H,W,3] linearised texture
+    brdf: Optional[torch.Tensor] = None         # [3, TABLE_SIZE] MERL table
+
+    @classmethod
+    def from_scene(cls, scene: Scene, hdr=True, diffuse_map=False,
+                   brdf=False) -> "DeferredParams":
+        """Copies of the chosen tables of ``scene``."""
+        def take(on, t):
+            return t.detach().clone() if on and t is not None else None
+
+        return cls(hdr=take(hdr, scene.hdr),
+                   diffuse_map=take(diffuse_map, scene.diffuse_map),
+                   brdf=take(brdf, scene.brdf))
+
+    def leaves(self) -> list:
+        """The tables that are set, in field order."""
+        return [t for t in (self.hdr, self.diffuse_map, self.brdf)
+                if t is not None]
+
+
+def apply_deferred(scene: Scene, params: DeferredParams) -> Scene:
+    """``scene`` with the tables of ``params`` that are set."""
+    kw = {f.name: getattr(params, f.name) for f in dataclasses.fields(params)
+          if getattr(params, f.name) is not None}
+    return scene.replace(**kw) if kw else scene
+
+
+def deferred_opt_step(settings: RenderSettings,
+                      optimizer: torch.optim.Optimizer, *,
+                      scene: Optional[Scene] = None, seed: int = 0,
+                      device="cuda"):
+    """Build a step of ``optimizer`` on :class:`DeferredParams`.
+
+    The optimiser holds the params' tables (each ``requires_grad_()``).
+    ``step(params, scene, camera, target, frame, fresnel_coef, fresnel_pow)
+    -> (params, metrics)`` renders ``scene`` with the tables grafted in on
+    the resolved backend (``settings_for_scene`` of ``scene``, given here or
+    at each step), takes ``sum((rgb - target)^2) / (n_pixels * 3)``, runs it
+    backward and lets the optimiser update the tables in place.
+    ``metrics`` holds ``loss`` and ``grad_global_norm``.
+    """
+    from vrenderer_pathtracer_tpu_torch.render.renderer import render_pass
+
+    device = _device(device)
+    if scene is not None:
+        settings = settings_for_scene(scene, settings)
+    inv_n = 1.0 / (settings.n_pixels * 3)
+
+    def step(params: DeferredParams, scene: Scene, camera: Camera, target,
+             frame, fresnel_coef, fresnel_pow):
+        _check_on(device, scene, target)
+        s = (settings_for_scene(scene, settings)
+             if settings.radiance_kernel == "auto" else settings)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            rgb, _ = render_pass(apply_deferred(scene, params), s, camera,
+                                 frame, fresnel_coef, fresnel_pow, seed)
+            loss = torch.sum((rgb - target) ** 2) * inv_n
             loss.backward()
         grads = [t.grad for t in params.leaves() if t.grad is not None]
         metrics = {"loss": loss.detach(), "grad_global_norm": _global_norm(grads)}

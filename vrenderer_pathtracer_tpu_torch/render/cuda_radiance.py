@@ -28,9 +28,9 @@ from vrenderer_pathtracer_tpu_torch.render import integrator
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
 
-# The kernel stages the sphere table in shared memory: 14 floats a sphere
-# within the default 48 KB a block may take without opting in.
-MAX_SPHERES = 512
+# Spheres the kernel stages in shared memory (csrc/common.cuh
+# kSmemSpheres, 14 floats each); a larger table is read from global memory.
+SMEM_SPHERES = 512
 
 
 def supports(scene: Scene, settings: RenderSettings) -> bool:
@@ -43,7 +43,6 @@ def supports(scene: Scene, settings: RenderSettings) -> bool:
         and not settings.has_brdf
         and not (settings.has_diffuse_map or settings.has_normal_map
                  or settings.has_specular_map)
-        and scene.spheres.count <= MAX_SPHERES
     )
 
 
@@ -98,7 +97,7 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
             raise ValueError(f"K1 {name} table must be contiguous float32")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"K1 {name} table has shape {tuple(t.shape)}")
-    if sph.dim() != 2 or sph.shape[1] != 14 or not 0 < sph.shape[0] <= MAX_SPHERES:
+    if sph.dim() != 2 or sph.shape[1] != 14 or not 0 < sph.shape[0] < 2 ** 24:
         raise ValueError(f"K1 spheres table has shape {tuple(sph.shape)}")
     n = settings.n_pixels
     if not 0 < n < 2 ** 31:
@@ -138,8 +137,7 @@ def render_pass_cuda(scene: Scene, settings: RenderSettings, camera: Camera,
         raise ValueError(f"K1 runs on CUDA devices, not {device}")
     if not supports(scene, settings):
         raise NotImplementedError(
-            "K1 covers Cornell sphere scenes with at most "
-            f"{MAX_SPHERES} spheres and no assets")
+            "K1 covers Cornell sphere scenes with no assets")
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
     return launch(pack_camera(camera, settings, fresnel_coef, fresnel_pow),

@@ -17,8 +17,14 @@ Estimator (the JAX package's, constant for constant):
 * Scene intersection: the analytic spheres, then the example sphere *or*
   the mesh, a later hit winning only if strictly closer.
 
-Measured-BRDF scenes, compact bounce waves, attribute capture and ray
-sorting are not in this slice and raise ``NotImplementedError``.
+* Measured BRDFs: BRDF-typed hits weight a cosine sample by
+  ``24 * max(merl, 0)``, or take the one-sample lobe MIS of
+  ``ops/brdf_sampling.py`` under ``brdf_importance_sampling`` (its sampler
+  built once a pass from the detached table, its two extra uniforms from
+  the slot-2 draws).
+
+Compact bounce waves, attribute capture and ray sorting are not ported and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -185,8 +191,16 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
     Returns ``(rgb [B,3], depth [B])``: the per-sample radiance estimate and
     the normalised first-hit depth.
     """
+    from vrenderer_pathtracer_tpu_torch.ops.brdf_sampling import build_merl_sampler
+
     check_scope(settings)
     n_rays = ray_o.shape[0]
+    brdf_table = scene.brdf if settings.has_brdf else None
+    # Lobe importance sampler (opt-in): 90 numbers from the detached table,
+    # built once a pass.
+    brdf_sampler = None
+    if settings.brdf_importance_sampling and brdf_table is not None:
+        brdf_sampler = build_merl_sampler(brdf_table)
     f32 = dict(dtype=torch.float32, device=ray_o.device)
     mask = torch.ones((n_rays, 3), **f32)
     accum = torch.zeros((n_rays, 3), **f32)
@@ -223,9 +237,15 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
             seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 0))
         u_phi, u_r = rng.uniform2(
             seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 1))
+        u_b1 = u_b2 = None
+        if brdf_sampler is not None:
+            u_b1, u_b2 = rng.uniform2(
+                seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 2))
         new_dir, mult = scatter(
             ray_d, hd.normal, hd.tangent, hd.color, hd.spec_color, hd.hit_type,
-            u_reflect, u_phi, u_r, fresnel_coef, fresnel_pow)
+            u_reflect, u_phi, u_r, fresnel_coef, fresnel_pow,
+            brdf_table=brdf_table, brdf_sampler=brdf_sampler, u_b1=u_b1,
+            u_b2=u_b2)
 
         ray_o = torch.where(lh, hd.point + ORIGIN_OFFSET * hd.normal, ray_o)
         ray_d = torch.where(lh, new_dir, ray_d)

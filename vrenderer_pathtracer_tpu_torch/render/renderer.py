@@ -2,10 +2,12 @@
 
 Progressive accumulation state is the reference's: an accumulation buffer
 and a frame counter; every scene or camera edit resets ``frame=1`` and
-zeroes the buffer.  One pass is: the radiance kernel K1 for Cornell sphere
-scenes on the card, or the wavefront integrator (``render/integrator.py``,
-whose mesh search is K3/K3b on the card) for every other scene and on the
-CPU; then the accumulation and the tonemap.
+zeroes the buffer.  One pass is :func:`render_pass` on the resolved backend
+(``scene.settings_for_scene``): K1 for Cornell sphere scenes on the card,
+K4 for the general scenes it covers, the wavefront integrator
+(``render/integrator.py``, whose mesh search is K3/K3b on the card) for the
+rest and the plain integrator on the CPU; then the accumulation and the
+tonemap.
 
 Parts of the JAX ``Renderer`` that the port has not reached raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -22,9 +24,10 @@ from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.ops.tonemap import tonemap
 from vrenderer_pathtracer_tpu_torch.render import integrator
+from vrenderer_pathtracer_tpu_torch.render.cuda_mesh import render_pass_mesh
 from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import render_pass_cuda
 from vrenderer_pathtracer_tpu_torch.scene.scene import (
-    K4_SLICE, MeshData, Scene, settings_for_scene)
+    MeshData, Scene, settings_for_scene)
 from vrenderer_pathtracer_tpu_torch.scene.spheres import build_sphere_set
 from vrenderer_pathtracer_tpu_torch.utils.profiling import RenderStats, synchronize
 
@@ -37,14 +40,27 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
+def render_pass(scene, settings, camera, frame, fresnel_coef, fresnel_pow,
+                seed=0):
+    """One pass on the backend ``settings.radiance_kernel`` names (resolved
+    by ``settings_for_scene``): ``(rgb_mean [N,3], depth [N])``."""
+    if settings.radiance_kernel == "cuda":
+        return render_pass_cuda(scene, settings, camera, frame, fresnel_coef,
+                                fresnel_pow, seed)
+    if settings.radiance_kernel == "cuda_mesh":
+        return render_pass_mesh(scene, settings, camera, frame, fresnel_coef,
+                                fresnel_pow, seed)
+    if settings.radiance_kernel in ("wavefront", "torch"):
+        return integrator.render_camera_pass(scene, settings, camera, frame,
+                                             fresnel_coef, fresnel_pow, seed)
+    raise ValueError(f"unresolved radiance_kernel {settings.radiance_kernel!r}"
+                     " (settings_for_scene resolves it)")
+
+
 def _render_step(scene, camera, accum, frame, fresnel_coef, fresnel_pow,
                  settings, seed):
-    if settings.radiance_kernel == "cuda":
-        rgb, depth = render_pass_cuda(scene, settings, camera, frame,
-                                      fresnel_coef, fresnel_pow, seed)
-    else:
-        rgb, depth = integrator.render_camera_pass(
-            scene, settings, camera, frame, fresnel_coef, fresnel_pow, seed)
+    rgb, depth = render_pass(scene, settings, camera, frame, fresnel_coef,
+                             fresnel_pow, seed)
     accum.add_(rgb)  # in place: the buffer is the renderer's own state
     img = tonemap(accum, frame, settings.gamma)
     return img, depth
@@ -162,7 +178,13 @@ class Renderer:
             raise ValueError(f"unknown texture type {texture_type}")
 
     def load_brdf(self, table):
-        _not_ported("load_brdf", K4_SLICE)
+        """Set a MERL table: a [3, 90*90*180] array or the path of a MERL
+        ``.binary`` (reference ``loadBRDF``)."""
+        if isinstance(table, (str, bytes)) or hasattr(table, "__fspath__"):
+            from vrenderer_pathtracer_tpu_torch.native import load_merl
+
+            table = load_merl(table)
+        self._mutate(brdf=self._asset(table))
 
     def init_mesh(self, mesh: MeshData):
         """Set a packed mesh (``accel/mesh.py::pack_mesh``) on this device."""
@@ -179,7 +201,10 @@ class Renderer:
         self.init_mesh(pack_mesh(load_mesh_file(path), device=self.device))
 
     def use_brdf(self, enable: bool):
-        _not_ported("use_brdf", K4_SLICE)
+        """Shade the example sphere and the mesh with the MERL table
+        (without a table: the diffuse weight, on the wavefront)."""
+        self.settings = self.settings.replace(use_brdf=enable)
+        self._mutate()
 
     def use_example_sphere(self, enable: bool):
         self.settings = self.settings.replace(use_example_sphere=enable)

@@ -1,9 +1,9 @@
 """Scene container and backend resolution (port of ``scene/scene.py``).
 
 A ``Scene`` holds the analytic spheres and the optional assets of the JAX
-``Scene``: the lat-long HDRI, the diffuse, normal and specular maps, and the
-mesh (:class:`MeshData`).  Every tensor lives on the spheres' device.  A
-measured BRDF table (``brdf``) belongs to the K4 slice and raises.
+``Scene``: the lat-long HDRI, the diffuse, normal and specular maps, the
+MERL-100 BRDF table and the mesh (:class:`MeshData`).  Every tensor lives on
+the spheres' device.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ import torch
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet, build_sphere_set
 
-K4_SLICE = ("ROADMAP Queue 2, K4 (render/pallas_mesh.py: the fused mesh "
-            "kernel, MERL BRDFs, mesh-scene gradients)")
+TRAIN_HDR_ITEM = ("ROADMAP Queue 1 item 15 (TrainParams.hdr: a trainable "
+                  "environment map through the wavefront integrator)")
 LARGE_MESH_SLICE = ("ROADMAP Queue 1 item 11 (large-mesh slice: paged "
                     "traversal, compact bounce waves, ray sorting)")
 CAPTURE_ITEM = ("ROADMAP Queue 2, K3 options (win-time attribute capture, "
@@ -58,10 +58,6 @@ class MeshData:
     nodes8_i: Optional[torch.Tensor] = None    # [N,16] 8 x (ref,count)
     nodes8_ax: Optional[torch.Tensor] = None   # [N] build-time sort axis
     tri_pack: Optional[torch.Tensor] = None      # [T8,16] (v0,e1,e2,slot,uv corners)
-    # K4's deferred-fetch packs (tangent and normal corners); None until the
-    # K4 slice reads them.
-    tri_aux_pack: Optional[torch.Tensor] = None
-    tri_nrm_pack: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.paged is not None:
@@ -92,12 +88,20 @@ class Scene:
     diffuse_map: Optional[torch.Tensor] = None   # [H,W,3] linearised
     normal_map: Optional[torch.Tensor] = None    # [H,W,3] raw
     specular_map: Optional[torch.Tensor] = None  # [H,W,3] raw
-    brdf: Optional[torch.Tensor] = None          # MERL table: the K4 slice
+    brdf: Optional[torch.Tensor] = None          # [3, 90*90*180] MERL table
     mesh: Optional[MeshData] = None
 
     def __post_init__(self):
         if self.brdf is not None:
-            raise NotImplementedError(f"measured BRDF tables: {K4_SLICE}")
+            from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE
+
+            b = self.brdf
+            if (b.dim() != 2 or tuple(b.shape) != (3, TABLE_SIZE)
+                    or b.dtype != torch.float32):
+                raise ValueError(f"brdf must be a float32 [3, {TABLE_SIZE}] "
+                                 f"MERL table, got {b.dtype} {tuple(b.shape)}")
+            if b.device != self.device:
+                raise ValueError(f"brdf on {b.device}, spheres on {self.device}")
         for name in _MAPS:
             t = getattr(self, name)
             if t is None:
@@ -129,19 +133,17 @@ class Scene:
             self, spheres=dataclasses.replace(self.spheres, **kw))
 
 
-def _resolve(request: str, want: str, what: str, device) -> str:
-    if request not in ("auto", want):
+def _resolve(request: str, want: str, what: str, device, also=()) -> str:
+    if request not in ("auto", want, *also):
         raise ValueError(f"{what}={request!r} cannot run this scene on "
                          f"{device}; use 'auto' or {want!r}")
-    return want
+    return want if request == "auto" else request
 
 
 def check_scope(settings: RenderSettings) -> None:
     """Raise ``NotImplementedError`` for settings the port does not cover
     yet, naming the ROADMAP item that does."""
-    for flag, item in (("has_brdf", K4_SLICE), ("use_brdf", K4_SLICE),
-                       ("brdf_importance_sampling", K4_SLICE),
-                       ("compact_waves", LARGE_MESH_SLICE),
+    for flag, item in (("compact_waves", LARGE_MESH_SLICE),
                        ("sort_rays", LARGE_MESH_SLICE),
                        ("captured_attrs", CAPTURE_ITEM)):
         if getattr(settings, flag):
@@ -152,48 +154,43 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
     """Derive the ``has_*`` flags from the scene's assets and resolve the
     radiance and traversal backends from the scene's device.
 
-    Radiance: a CPU scene runs the plain integrator (``"torch"``).  A CUDA
-    scene runs K1 (``"cuda"``) where it covers the scene (Cornell spheres,
-    no assets); a scene with a mesh, an HDRI or a map, the example sphere or
-    no Cornell box runs the wavefront integrator on the card
-    (``"wavefront"``), whose mesh search is K3 or K3b; a Cornell sphere
-    scene beyond K1's sphere cap raises.  Traversal:
-    ``"cuda"`` (K3/K3b, ``accel/cuda_traverse.py``) for a CUDA scene,
-    ``"torch"`` (the plain lockstep ``traverse``) for a CPU scene.  A CUDA
-    scene never resolves to the plain traversal, and a request that does not
-    match the device raises.  ``"cuda_mesh"`` (a fused mesh kernel) raises:
-    it is the K4 slice.
+    Radiance, in the JAX package's order: a CPU scene runs the plain
+    integrator (``"torch"``).  A CUDA scene runs K1 (``"cuda"``,
+    ``render/cuda_radiance.py``) where it covers the scene (Cornell spheres,
+    no assets); otherwise K4 (``"cuda_mesh"``, ``render/cuda_mesh.py``)
+    where ``cuda_mesh.supports`` holds; otherwise the wavefront integrator
+    on the card (``"wavefront"``), whose mesh search is K3 or K3b.
+    Traversal: ``"cuda"`` (K3/K3b, ``accel/cuda_traverse.py``) for a CUDA
+    scene, ``"torch"`` (the plain lockstep ``traverse``) for a CPU scene.  A
+    CUDA scene never resolves to a plain version, and a request that does
+    not match the device or the scene raises, except ``"wavefront"`` on
+    the card, which runs any CUDA scene (the comparison pass of a kernel's
+    scene).
     """
-    from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
-        MAX_SPHERES, supports)
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh, cuda_radiance
 
     check_scope(settings)
-    if settings.radiance_kernel == "cuda_mesh":
-        raise NotImplementedError(f"the fused mesh kernel: {K4_SLICE}")
     resolved = settings.replace(
         has_diffuse_map=scene.diffuse_map is not None,
         has_normal_map=scene.normal_map is not None,
         has_specular_map=scene.specular_map is not None,
-        has_brdf=False,
+        has_brdf=scene.brdf is not None,
         has_mesh=scene.mesh is not None,
         has_hdr=scene.hdr is not None,
     )
     on_cuda = scene.device.type == "cuda"
     if not on_cuda:
         radiance = "torch"
-    elif supports(scene, resolved):
+    elif cuda_radiance.supports(scene, resolved):
         radiance = "cuda"
-    elif (resolved.has_mesh or resolved.has_hdr or resolved.has_diffuse_map
-          or resolved.has_normal_map or resolved.has_specular_map
-          or resolved.use_example_sphere or not resolved.use_cornell_box):
-        radiance = "wavefront"
+    elif cuda_mesh.supports(scene, resolved):
+        radiance = "cuda_mesh"
     else:
-        raise NotImplementedError(
-            f"a Cornell sphere scene of {scene.spheres.count} spheres: K1 "
-            f"takes at most {MAX_SPHERES} (its sphere table in shared memory)")
+        radiance = "wavefront"
     return resolved.replace(
         radiance_kernel=_resolve(settings.radiance_kernel, radiance,
-                                 "radiance_kernel", scene.device),
+                                 "radiance_kernel", scene.device,
+                                 ("wavefront",) if on_cuda else ()),
         traversal=_resolve(settings.traversal, "cuda" if on_cuda else "torch",
                            "traversal", scene.device),
     )
