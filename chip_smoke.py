@@ -6,7 +6,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card: print ``nvidia-smi``'s name and power limit.
 2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3 +
-   K3b (``csrc/traverse.cu``) and K4 (``csrc/mesh.cu``) of
+   K3b (``csrc/traverse.cu``), K4 (``csrc/mesh.cu``), K5 (``csrc/paged.cu``)
+   and K6 (``csrc/probe.cu``) of
    ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
    started together; print the seconds and ptxas' report (registers,
    spills and stack of every kernel instance).
@@ -60,7 +61,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    card against the same scene on the CPU at 64x32.
 15. Times from CUDA events: K3 and K3b per primary wave (2M rays) and per
    bounce wave, the wrapper, and the plain version at the bench's
-   traversal view and on one pass's waves.
+   traversal view and on one pass's waves; the nm pass through the
+   full-width and the compact chain (bit-identical images).
 16. Where the time goes: a ``torch.profiler`` trace of 20 mesh passes.
 17. Bounds of K3 and K3b: node visits, box tests and triangle tests
    counted by the kernels on one pass's waves (see ``traversal_bound``).
@@ -95,9 +97,46 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain version and the wavefront pass.
 25. Where the time goes: a ``torch.profiler`` trace of 20 K4 passes.
 26. K4's bound from the work it counts (``k4_bound``).
+27. Config 5 (``config5_assets``: ``examples/config5.py::synth_assets``'s
+   499,000-triangle UV sphere, 128x256 gradient sky as an array, Lambertian
+   MERL ``.binary``): the set-up seconds (page SBVHs, collapse and leaf
+   blocks, top tree and upload), the page count and the device bytes; then
+   ``Renderer(1920, 1080)`` with FXAA, MERL and remat through ``load_hdr``,
+   ``load_brdf(path)`` and ``load_mesh`` (which pages the mesh).
+28. Resolution: radiance "wavefront", traversal "cuda_paged" (K5), compact
+   waves on, K4 refusing the scene.
+29. K5 against ``traverse_paged_reference`` under phase 13's contract, on
+   65,536 rays sampled (fixed seed) from each of the four waves of a spec
+   pass and on every ray of a 480x270 pass; two planted faults (the slot
+   one page off, the nearest page skipped) must break it, and a third (a
+   page's occlusion skip gated on the next entry's entry t with ``>``),
+   which errs below the contract's allowance, must change rays of the full
+   spec waves; the skip faults must not lose every hit; NaN rays among the rays
+   of a wave leave every other ray's result bit-identical.
+30. The compact chain against the full-width chain at 480x270: image and
+   depth bit-identical.
+31. The config-5 ``Renderer`` on the card against the CPU at 64x32 on a
+   3,120-triangle sphere paged at 512.
+32. 2 warm and 5 timed ``Renderer`` passes at 1920x1080: K5 ``bounces``
+   times a pass, no plain search and no K3/K3b/K4; the image is FXAA of
+   the tonemapped accumulation, finite, the sphere hit at the centre.
+33. The gradient at spec with remat (MERL table and HDRI, the loss of
+   ``examples/config5.py``): loss, wall time, peak memory; the same
+   against a single-level pack through the full-width K3 wavefront under
+   tests/test_paged_grad_parity.py's policy.
+34. Where the time goes (``torch.profiler`` over 5 passes), times in turns
+   (K5 and K3 on the four spec waves, the plain version, the pass) and
+   K5's bound from the work it counts (``paged_bound``).
+35. The K3 comparison: K3 on the single-level pack against K5 on the same
+   four waves (same triangles), with K3's bound.
+36. K6, the bf16 probe: against the plain chain at the check constants
+   (where the chain moves in both dtypes; float32 within 1e-4, bf16
+   bit-equal), at the probe's shapes and at 2^22 / 2^23 elements, with a
+   planted no-op kernel that must fail; then, at the probe's constants,
+   elements/s of each, their ratio, the SASS FMA opcodes.
 
-The last lines are the kernel table (K1, K2, K3, K3b, K4) as one JSON
-object and then
+The last lines are the kernel table (K1, K2, K3, K3b, K4, K5, K6) as one
+JSON object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -173,6 +212,7 @@ REV_STEP = {"fp32": 70, "sfu": 3}
 
 # The mesh path (phases 12-17).  The nm scene of bench.py::_nm_wavefront_bench
 # and the small sphere of tests/test_config3_textured_mesh.py.
+CHAIN_PAIRS = 10                # nm passes through each chain, in pairs
 NM_SPHERE = (12.0, 120, 120)     # radius, n_theta, n_phi: 28,560 triangles
 SMALL_SPHERE = (14.0, 24, 32)    # 1,472 triangles
 MESH_PASSES, MESH_K3B_PASSES = 10, 3
@@ -402,11 +442,11 @@ def traversal_contract(a):
             and a["t_rel_max"] <= T_RTOL and a["miss_t_exact"])
 
 
-def agreement(name, mesh, got, want, t_max):
+def agreement(name, mesh, got, want, t_max, want_mesh=None):
     """Print how two closest-hit results on the same rays agree."""
     from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import hit_agreement
 
-    a = hit_agreement(mesh, got, want, t_max)
+    a = hit_agreement(mesh, got, want, t_max, want_mesh)
     print(f"  {name}: {a['rays']} rays, hit {a['hit_frac']:.4%}, hit/miss "
           f"mismatch {a['hit_mismatch']:.5%}, other triangle "
           f"{a['geometry_mismatch']:.5%}, t rel err max {a['t_rel_max']:.3g}"
@@ -415,9 +455,9 @@ def agreement(name, mesh, got, want, t_max):
     return a
 
 
-def check_hits(name, mesh, got, want, t_max):
+def check_hits(name, mesh, got, want, t_max, want_mesh=None):
     """Hold two closest-hit results to the phase-13 contract."""
-    a = agreement(name, mesh, got, want, t_max)
+    a = agreement(name, mesh, got, want, t_max, want_mesh)
     assert traversal_contract(a), name
     return a
 
@@ -508,6 +548,41 @@ def traversal_bound(mesh, wide, waves):
         by_ops += t_ops if t_ops >= t_bytes else 0.0
     return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
             work, n_bytes)
+
+
+def chain_pairs(r, s, dev, card, pairs=CHAIN_PAIRS):
+    """The nm pass through the full-width and the compact chain: images
+    bit-identical, then ``pairs`` pairs of passes timed one by one (CUDA
+    events), alternating which chain runs first; at the default view and
+    at a close-up where the sphere fills the frame."""
+    from vrenderer_pathtracer_tpu_torch.render.integrator import render_camera_pass
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    for view, z in (("default view", 40.0), ("close-up", 20.0)):
+        cam = r.camera.replace(origin=torch.tensor([0.0, 0.0, z], device=dev))
+
+        def run(compact):
+            return render_camera_pass(r.scene, s.replace(compact_waves=compact),
+                                      cam, 1, r.fresnel_coef, r.fresnel_pow)
+
+        comp, full = run(True), run(False)
+        assert all(torch.equal(a, b) for a, b in zip(comp, full)), view
+        hits = (full[1] < 1).float().mean().item()
+        t = {True: [], False: []}
+        for i in range(pairs):
+            for compact in ((True, False) if i % 2 else (False, True)):
+                t[compact].append(cuda_time_ms(lambda: run(compact), dev,
+                                               iters=1, warmup=0))
+        med = {k: float(np.median(v)) for k, v in t.items()}
+        q1, q3 = np.percentile(t[False], [25, 75])
+        wins = sum(c < f for c, f in zip(t[True], t[False]))
+        print(f"nm pass, {view} ({hits:.2%} of pixels hit), {WIDTH}x{HEIGHT}: "
+              f"images bit-identical; full-width chain median {med[False]:.3f} ms "
+              f"(quartiles {q1:.3f}-{q3:.3f}), compact chain median "
+              f"{med[True]:.3f} ms ({med[True] / med[False]:.3f}x), compact "
+              f"faster in {wins} of {pairs} pairs, {card}")
+        print(f"  full width: {', '.join(f'{x:.2f}' for x in t[False])} ms")
+        print(f"  compact:    {', '.join(f'{x:.2f}' for x in t[True])} ms")
 
 
 def mesh_phases(dev, card, rays_per_pass_of):
@@ -643,7 +718,10 @@ def mesh_phases(dev, card, rays_per_pass_of):
              .render_frames(2)] for d in (dev, "cpu")]
     _compare("nm scene Renderer 64x32 cuda vs cpu", pair[0], pair[1])
 
-    # 15. Times (CUDA events), in turns.
+    # 15. Times (CUDA events), in turns.  Also the nm pass through the
+    # full-width chain (the scene's own) and through the compact chain.
+    chain_pairs(r, s, dev, card)
+
     prim, bounce = main_waves[0], main_waves[1]
     timed = {
         "K3 primary": (lambda: k3.launch_k3(mesh, *prim), 20),
@@ -1194,6 +1272,532 @@ def k4_phases(dev, card, work_dir, nm_obj):
     }
 
 
+# The config-5 path (phases 27-36): BASELINE config 5 as bench.py:249-288
+# and examples/config5.py run it, with its assets made as
+# examples/config5.py::synth_assets makes them (the sky as an array): the
+# ~499k-triangle UV sphere (paged: K5 as the mesh search, compact bounce
+# waves), the 128x256 gradient sky, a Lambertian MERL table written as a
+# .binary and read by load_brdf(path), FXAA, remat; 1920x1080, 2 spp, 4
+# bounces, the default camera.  No cut.
+C5_SIZE = (1920, 1080)
+C5_SMALL = (480, 270)
+C5_SPHERE = (12.0, 500, 500)    # 499,000 triangles
+C5_CPU_SPHERE = (12.0, 40, 40)  # 3,120 triangles, paged at 512 a page
+C5_WARM, C5_PASSES = 2, 5
+K5_SAMPLE = 65536               # rays sampled from each spec wave
+# The gradient parity policy of tests/test_paged_grad_parity.py: relative
+# L2 of each gradient, and the share of coefficients within 1e-2 of the
+# single-level one (with a floor of 1e-4 of its largest magnitude).
+GRAD_REL_L2, GRAD_TIGHT_FRAC = 5e-3, 0.995
+# K6: the probe's 512-step chain; its rate is timed on a card-filling
+# array (2^22 float32 elements, 2^23 bf16: the same bytes) at the probe's
+# constants, under which the bf16 chain keeps its input.  Its agreement
+# with the plain chain is checked at kernels/probe.py's check constants,
+# where the chain moves in both dtypes, at the probe's shapes and the
+# card-filling ones: float32 within probe.F32_RTOL (the FMA against two
+# roundings a step), bf16 bit-equal; the planted no-op kernel must fail.
+K6_N = 1 << 22
+# A packed __hfma2 does two bf16 FMAs in one instruction at the FP32 FMA
+# issue rate: 2 x 67 TFLOP/s (NVIDIA's Hopper architecture white paper,
+# 133.8 TFLOP/s non-tensor FP16/BF16).
+BF16X2_RATE = 2 * RATES["fp32"]
+
+
+def config5_assets(work_dir):
+    """examples/config5.py::synth_assets: (obj path, sky [128,256,3] array,
+    MERL .binary path)."""
+    from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    obj = str(work_dir / "c5_sphere.obj")
+    write_uv_sphere(obj, *C5_SPHERE)
+    h, w = 128, 256
+    v = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    img = np.concatenate(
+        [1.2 * (1 - v), 0.7 * np.ones((h, 1, 1), np.float32), 1.2 * v], axis=2)
+    sky = np.broadcast_to(img, (h, w, 3)).copy()
+    brdf = str(work_dir / "c5_lambert.binary")
+    scales = np.array([1.0, 1.15, 1.66]) / 1500.0
+    write_merl(brdf, (0.05 / scales)[:, None] * np.ones((3, TABLE_SIZE)))
+    return obj, sky, brdf
+
+
+def config5_renderer(width, height, device, sky, brdf, mesh):
+    """Config 5 through the Renderer's entry points, on a packed mesh."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+
+    r = Renderer(width, height, settings=RenderSettings(
+        samples_per_pass=2, bounces=4, use_fxaa=True, use_brdf=True,
+        remat_bounces=True), device=device)
+    r.load_hdr(sky)
+    r.load_brdf(brdf)
+    r.init_mesh(mesh)
+    return r
+
+
+def capture_paged_waves(r):
+    """Render one pass of ``r`` and return the (ray_o, ray_d, t_max) of
+    every K5 search in it, in bounce order."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+
+    waves, real = [], k5.traverse_paged_cuda
+
+    def spy(mesh, o, d, t):
+        waves.append((o.clone(), d.clone(), t.clone()))
+        return real(mesh, o, d, t)
+
+    k5.traverse_paged_cuda = spy
+    try:
+        r.render()
+    finally:
+        k5.traverse_paged_cuda = real
+    return waves
+
+
+def paged_read_bytes(mesh):
+    """Bytes of the paged arrays K5 reads, each once: as mesh_read_bytes
+    counts K3's, over the top tree and every page's tree."""
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
+
+    cnt = mesh.paged.nodes8_i.view(-1, 8, 2)[..., 1]
+    return (cnt.shape[0] * (64 + 4) + 24 * int((cnt >= 0).sum())
+            + 48 * int(cnt.clamp(0, MAX_LEAF).sum()))
+
+
+def paged_bound(mesh, waves):
+    """(bound_ms, bound_by, work, bytes) of K5 over ``waves``, as
+    ``traversal_bound`` counts K3's: the work K5 counts on these rays (node
+    visits, box tests, triangle tests, pages searched), the rays' bytes, and
+    the paged arrays once."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+
+    mesh_bytes = paged_read_bytes(mesh)
+    total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0, 0], 0
+    for i, (o, d, t) in enumerate(waves):
+        stats = torch.zeros(4, dtype=torch.int64, device=o.device)
+        k5.launch_k5(mesh, o, d, t, stats=stats)
+        got = [int(x) for x in stats.tolist()]
+        work = [a + b for a, b in zip(work, got)]
+        visits, boxes, tris, _ = got
+        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
+                       + tris * TRAV_OPS["fp32_per_tri"],
+               "sfu": tris * TRAV_OPS["sfu_per_tri"],
+               "int32": visits * TRAV_OPS["int32_per_visit"]
+                        + boxes * TRAV_OPS["int32_per_box"]}
+        t_ops = max(ops[k] / RATES[k] for k in ops)
+        wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
+                      + (mesh_bytes if i == 0 else 0))
+        n_bytes += wave_bytes
+        t_bytes = wave_bytes / HBM_BYTES_PER_S
+        total += max(t_ops, t_bytes)
+        by_ops += t_ops if t_ops >= t_bytes else 0.0
+    return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
+            work, n_bytes)
+
+
+def sample_rays(wave, n, seed):
+    """``n`` rays of ``wave`` (all of them if it holds fewer), chosen with a
+    fixed seed."""
+    o, d, t = wave
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randperm(o.shape[0], generator=g)[:n].to(o.device)
+    return o[idx].contiguous(), d[idx].contiguous(), t[idx].contiguous()
+
+
+def config5_grads(scene, settings, camera, target, fc, fp):
+    """Loss and gradients with respect to the MERL table and the HDRI of
+    one wavefront pass (examples/config5.py's gradient), with wall seconds
+    and peak device bytes."""
+    from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
+    from vrenderer_pathtracer_tpu_torch.render import integrator
+
+    brdf = scene.brdf.clone().requires_grad_()
+    hdr = scene.hdr.clone().requires_grad_()
+    s2 = scene.replace(brdf=brdf, hdr=hdr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
+    ids = pixel_ids(settings.width, settings.height, ray_o.device)
+    rgb, _ = integrator.render_pass(s2, settings, ray_o, ray_d, ids, 1, fc, fp)
+    loss = torch.mean((rgb - target) ** 2)
+    g_brdf, g_hdr = torch.autograd.grad(loss, (brdf, hdr))
+    torch.cuda.synchronize()
+    return (loss.item(), g_brdf, g_hdr, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def grad_parity(name, got, want):
+    """tests/test_paged_grad_parity.py's policy: (rel L2, tight share)."""
+    got, want = got.double(), want.double()
+    rel = ((got - want).norm() / want.norm().clamp(min=1e-12)).item()
+    denom = want.abs() + 1e-4 * want.abs().max() + 1e-12
+    tight = ((got - want).abs() / denom < 1e-2).double().mean().item()
+    print(f"  {name}: rel L2 {rel:.4g} (limit {GRAD_REL_L2:g}), within 1e-2: "
+          f"{tight:.5%} (limit {GRAD_TIGHT_FRAC:.1%}), |grad| "
+          f"{want.norm().item():.4g}")
+    return rel, tight
+
+
+def sass_opcodes(lib):
+    """Print each kernel's count of FMA-class instructions in the SASS of
+    ``lib`` (cuobjdump, where the toolkit has it)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"  SASS: cuobjdump not available ({e})")
+        return
+    for chunk in out.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        ops = re.findall(r"\b(FFMA|HFMA2(?:\.[A-Z0-9_]+)*|FMUL|FADD)\b", chunk)
+        counts = {op: ops.count(op) for op in sorted(set(ops))}
+        print(f"  SASS {name[:60]}: {counts}")
+
+
+def config5_phases(dev, card, work_dir):
+    """Phases 27-36; returns the K5 and K6 rows of the kernel table."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+    from vrenderer_pathtracer_tpu_torch.accel.paged import pack_mesh_paged
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+    from vrenderer_pathtracer_tpu_torch.kernels import probe as k6
+    from vrenderer_pathtracer_tpu_torch.native import load_mesh_file, load_obj
+    from vrenderer_pathtracer_tpu_torch.ops.fxaa import fxaa
+    from vrenderer_pathtracer_tpu_torch.ops.tonemap import tonemap
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+    from vrenderer_pathtracer_tpu_torch.render import integrator
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    # 27. Config-5 set-up: the assets, the OBJ, the paged pack.
+    t0 = time.perf_counter()
+    obj, sky, brdf = config5_assets(work_dir)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = load_mesh_file(obj)
+    load_s = time.perf_counter() - t0
+    seconds = {}
+    mesh = pack_mesh_paged(host, device=dev, seconds=seconds)
+    pg = mesh.paged
+    dev_bytes = sum(t.numel() * t.element_size() for t in mesh.tensors())
+    print(f"config 5: {len(host.tris)} triangles in {pg.n_pages} pages of "
+          f"{pg.page_tris}, {pg.n_top} top-level and "
+          f"{pg.nodes8_i.shape[0] - pg.n_top} page nodes, "
+          f"{pg.tri_pack.shape[0]} leaf rows, {dev_bytes / 1e6:.1f} MB on the "
+          f"card; set-up: assets {synth_s:.2f} s, OBJ {load_s:.2f} s, page "
+          f"SBVHs {seconds['sbvh']:.2f} s, collapse + leaf blocks "
+          f"{seconds['collapse']:.2f} s, top tree + upload "
+          f"{seconds['upload']:.2f} s")
+    w, h = C5_SIZE
+    r = config5_renderer(w, h, dev, sky, brdf, mesh)
+    t0 = time.perf_counter()
+    r.load_mesh(obj)  # the entry point a user calls: pack_mesh(paged=None)
+    print(f"  Renderer.load_mesh: {time.perf_counter() - t0:.2f} s")
+    mesh = r.scene.mesh
+    assert mesh.paged is not None and mesh.paged.n_pages == pg.n_pages
+
+    # 28. Resolution.
+    s = r.settings
+    assert (s.radiance_kernel, s.traversal, s.compact_waves) == (
+        "wavefront", "cuda_paged", True), s
+    assert s.use_fxaa and s.remat_bounces and s.has_brdf and s.has_hdr
+    assert not k4.supports(r.scene, s)
+    print(f"config 5 resolves: radiance {s.radiance_kernel}, traversal "
+          f"{s.traversal}, compact waves {s.compact_waves}")
+
+    # 29. K5 against its plain version: 65,536 rays sampled from each wave
+    # of a spec pass, every ray of a 480x270 pass, planted faults, NaN rays.
+    spec_waves = capture_paged_waves(r)
+    assert len(spec_waves) == s.bounces
+    r.clear_buffer()
+    small = config5_renderer(*C5_SMALL, dev, sky, brdf, mesh)
+    small_waves = capture_paged_waves(small)
+    sets = {f"spec wave {i} (sample of {wv[0].shape[0]})":
+            sample_rays(wv, K5_SAMPLE, seed=i)
+            for i, wv in enumerate(spec_waves)}
+    sets.update({f"480x270 wave {i}": wv for i, wv in enumerate(small_waves)})
+    print("K5 vs traverse_paged_reference on the card (limits: hit/miss "
+          f"{HIT_MISMATCH_FRAC:g}, other triangle {GEOMETRY_MISMATCH_FRAC:g} "
+          f"of the rays, t rtol {T_RTOL:g}):")
+    k5_err = 0.0
+    wants = {}
+    for name, (o, d, t) in sets.items():
+        want = wants[name] = trav.traverse_paged_reference(mesh, o, d, t)
+        a = check_hits(f"K5 {name}", mesh, k5.traverse_paged_cuda(mesh, o, d, t),
+                       want, t)
+        k5_err = max(k5_err, a["t_abs_max"])
+    union = [torch.cat([sets[n][k] for n in sets if n.startswith("spec")])
+             for k in range(3)]
+    want_u = trav.traverse_paged_reference(mesh, *union)
+    print("planted K5 faults, the sampled spec rays against the plain version:")
+    gate = k5.FAULTS["a page's occlusion skip tests > against the next entry's entry t"]
+    for what, f in k5.FAULTS.items():
+        a = agreement(f"K5, {what}", mesh,
+                      k5.launch_k5(mesh, *union, fault=f), want_u, union[2])
+        # The skip faults leave the walk running: each loses some hits, not
+        # every one (an all-miss kernel would read the hit fraction).
+        if f != k5.FAULTS["global slot one page off"]:
+            assert a["hit_mismatch"] < a["hit_frac"], f"K5, {what} kills every hit"
+        if f != gate:
+            assert not traversal_contract(a), f"K5, {what} passes"
+    # The gate fault errs only where the page that holds a ray's hit is the
+    # last entry left on its stack (no farther box behind the hit: the
+    # silhouette), a rate below the contract's hit/miss allowance.  It must
+    # change rays of the full spec waves against the sound kernel.
+    changed = rays = 0
+    for wv in spec_waves:
+        good, bad = k5.launch_k5(mesh, *wv), k5.launch_k5(mesh, *wv, fault=gate)
+        changed += int(((good[0] != bad[0]) | (good[1] != bad[1])).sum())
+        rays += wv[0].shape[0]
+    print(f"  K5, the gate fault on the full spec waves: {changed} of {rays} "
+          f"rays changed ({changed / rays:.3g}; the contract allows "
+          f"{HIT_MISMATCH_FRAC:g} hit/miss)")
+    assert changed > 0, "K5's gate fault changes no ray"
+    o, d, t = small_waves[0]
+    o2, d2 = o.clone(), d.clone()
+    o2[::7] = float("nan")
+    d2[3::11, 1] = float("nan")
+    bad = torch.zeros(o.shape[0], dtype=torch.bool, device=dev)
+    bad[::7] = True
+    bad[3::11] = True
+    clean = k5.launch_k5(mesh, o, d, t)
+    mixed = k5.launch_k5(mesh, o2, d2, t)
+    assert all(torch.equal(x[~bad], y[~bad]) for x, y in zip(clean, mixed))
+    assert bool((mixed[0][bad] == -1).all())
+    assert all(torch.equal(x, y) for x, y in zip(clean, k5.launch_k5(mesh, o, d, t)))
+    print(f"K5 NaN lanes: {int(bad.sum())} NaN rays among {o.shape[0]} leave "
+          "every other ray's (slot, t) bit-identical and miss; repeat "
+          "launches bit-identical")
+
+    # 30. Compact against full width on the card, 480x270: the same lanes
+    # through the same arithmetic.
+    ss = small.settings
+    fc, fp = small.fresnel_coef, small.fresnel_pow
+    comp = integrator.render_camera_pass(small.scene, ss, small.camera, 1, fc, fp)
+    full = integrator.render_camera_pass(
+        small.scene, ss.replace(compact_waves=False), small.camera, 1, fc, fp)
+    same = [torch.equal(a, b) for a, b in zip(comp, full)]
+    print(f"compact vs full width, 480x270: rgb bit-identical {same[0]}, depth "
+          f"{same[1]}; hit pixels {(comp[1] < 1).float().mean().item():.3%}")
+    assert all(same)
+
+    # 31. The card against the CPU at 64x32, a small paged mesh.
+    cpu_obj = str(work_dir / "c5_cpu.obj")
+    write_uv_sphere(cpu_obj, *C5_CPU_SPHERE)
+    small_host = load_obj(cpu_obj)
+    pair = []
+    for d_ in (dev, "cpu"):
+        rr = config5_renderer(64, 32, d_, sky, brdf,
+                              pack_mesh_paged(small_host, 512, device=d_))
+        rr.update_camera(origin=(0.0, 0.0, 40.0))
+        assert rr.settings.traversal == ("cuda_paged" if d_ == dev else "torch")
+        pair.append([torch.from_numpy(x) for x in rr.render_frames(2)])
+    _compare("config-5 scene, 3,120-triangle paged sphere, Renderer 64x32 "
+             "cuda vs cpu", pair[0], pair[1])
+
+    # 32. Timed passes at spec: K5 `bounces` times a pass, no plain search.
+    r.clear_buffer()
+    k5.launch_k5.count = k3.launch_k3.count = k3.launch_k3b.count = 0
+    k4.launch_k4.count = 0
+    trav.traverse.count = trav.traverse_paged_reference.count = 0
+    for _ in range(C5_WARM):
+        r.render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(C5_PASSES):
+        img, depth = r.render()
+        assert k5.launch_k5.count == s.bounces * (C5_WARM + i + 1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / C5_PASSES
+    k5_launches = k5.launch_k5.count
+    assert (k3.launch_k3.count == k3.launch_k3b.count == k4.launch_k4.count
+            == trav.traverse.count == trav.traverse_paged_reference.count == 0)
+    assert img.shape == (h, w, 3) and torch.isfinite(img).all()
+    assert torch.isfinite(depth).all() and 0 <= img.min() and img.max() <= 1
+    # The displayed image is FXAA of the tonemapped accumulation.  The
+    # sky (0.7-1.2, doubled on a miss) and the sphere (a Lambertian 0.05
+    # table, weighted 24x) both tonemap at or near the clamp, as in the JAX
+    # package, so FXAA finds few edges to move.
+    toned = tonemap(r._accum, r.frame - 1, s.gamma).reshape(h, w, 3)
+    assert torch.equal(img, fxaa(toned, r.fxaa_subpix_quality,
+                                 r.fxaa_edge_threshold))
+    moved = (img != toned).any(dim=-1).float().mean().item()
+    hit_px = (depth < 1).float().mean().item()
+    centre = img[h // 2 - 8:h // 2 + 8, w // 2 - 8:w // 2 + 8]
+    sky_mean = img[:64].mean().item()
+    assert 1e-3 < hit_px < 0.2, hit_px
+    assert (depth[h // 2, w // 2] < 1).item() and centre.mean().item() > 0.5
+    assert sky_mean > 0.5
+    rays = w * h * s.samples_per_pass * s.bounces
+    print(f"config-5 render path: {w}x{h}, {s.samples_per_pass} spp, "
+          f"{s.bounces} bounces, FXAA: {wall * 1e3:.3f} ms/pass wall, "
+          f"{rays / wall / 1e6:.1f} Mrays/s, hit pixels {hit_px:.3%}, image "
+          f"mean {img.mean().item():.4f}, sphere centre "
+          f"{centre.mean().item():.4f}, sky rows {sky_mean:.4f}, pixels FXAA "
+          f"moved {moved:.3%}, K5 launches {k5_launches} "
+          f"({C5_WARM + C5_PASSES} passes), plain searches 0, {card}")
+
+    # 33. The gradient at spec with remat: MERL table and HDRI, against the
+    # same scene packed single-level through the K3 wavefront.
+    target = torch.clamp(img.reshape(-1, 3) * 0.9, 0.0, 1.0).detach()
+    gset = s.replace(use_fxaa=False)
+    loss, g_brdf, g_hdr, grad_s, peak = config5_grads(
+        r.scene, gset, r.camera, target, r.fresnel_coef, r.fresnel_pow)
+    assert math.isfinite(loss)
+    assert torch.isfinite(g_brdf).all() and torch.isfinite(g_hdr).all()
+    assert g_brdf.abs().sum() > 0 and g_hdr.abs().sum() > 0
+    t0 = time.perf_counter()
+    flat = pack_mesh(host, paged=False, device=dev)
+    flat_s = time.perf_counter() - t0
+    flat_scene = r.scene.replace(mesh=flat)
+    fset = gset.replace(traversal="cuda", compact_waves=False)
+    k3.launch_k3.count = 0
+    f_loss, f_brdf, f_hdr, f_s, f_peak = config5_grads(
+        flat_scene, fset, r.camera, target, r.fresnel_coef, r.fresnel_pow)
+    assert k3.launch_k3.count > 0
+    print(f"config-5 gradient, {w}x{h}, remat: loss {loss:.6g}, "
+          f"{grad_s * 1e3:.1f} ms wall, peak {peak / 2**30:.2f} GiB; "
+          f"single-level K3 wavefront (full width): loss {f_loss:.6g}, "
+          f"{f_s * 1e3:.1f} ms, peak {f_peak / 2**30:.2f} GiB (pack "
+          f"{flat_s:.1f} s, {flat.tri_count.item()} slots)")
+    for name, got, want in (("MERL gradient", g_brdf, f_brdf),
+                            ("HDRI gradient", g_hdr, f_hdr)):
+        rel, tight = grad_parity(name, got, want)
+        assert rel < GRAD_REL_L2 and tight >= GRAD_TIGHT_FRAC, name
+    assert abs(loss - f_loss) <= 1e-4 * abs(f_loss), (loss, f_loss)
+
+    # 34. Where the time goes, and K5's bound on the spec waves.
+    device_profile("config-5 render pass", r.render, 5, top=12)
+    timed = {
+        "K5 pass (4 waves)": (lambda: [k5.launch_k5(mesh, *wv) for wv in spec_waves], 10),
+        "K5 primary": (lambda: k5.launch_k5(mesh, *spec_waves[0]), 10),
+        "K3 pass (4 waves)": (lambda: [k3.launch_k3(flat, *wv) for wv in spec_waves], 10),
+        "K3 primary": (lambda: k3.launch_k3(flat, *spec_waves[0]), 10),
+        "plain pass (4 waves)": (lambda: [trav.traverse_paged_reference(mesh, *wv)
+                                          for wv in spec_waves], 1),
+        "Renderer pass": (r.render, 3),
+    }
+    tms = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        tms[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    ms = {name: sum(v) / len(v) for name, v in tms.items()}
+    for name, v in tms.items():
+        print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    b_ms, by, work, n_bytes = paged_bound(mesh, spec_waves)
+    print(f"K5 bound per pass {b_ms:.4f} ms ({by}; node visits {work[0]}, box "
+          f"tests {work[1]}, triangle tests {work[2]}, pages searched "
+          f"{work[3]}, bytes {n_bytes} of which mesh {paged_read_bytes(mesh)}, "
+          f"rays {[wv[0].shape[0] for wv in spec_waves]}, live "
+          f"{[int((wv[2] > 0).sum()) for wv in spec_waves]}), measured "
+          f"{ms['K5 pass (4 waves)']:.4f} ms = "
+          f"{b_ms / ms['K5 pass (4 waves)']:.1%} of bound, {card}")
+
+    # 35. K3 on a single-level pack of the same mesh, the same four waves.
+    for i, wv in enumerate(spec_waves):
+        check_hits(f"K3 single-level vs K5, spec wave {i}", flat,
+                   k3.launch_k3(flat, *wv), k5.launch_k5(mesh, *wv), wv[2],
+                   want_mesh=mesh)
+    k3b_ms, k3by, k3work, _ = traversal_bound(flat, True, spec_waves)
+    print(f"K3 comparison, config-5 waves: K5 {ms['K5 pass (4 waves)']:.4f} "
+          f"ms a pass ({ms['K5 primary']:.4f} primary), K3 on the "
+          f"single-level pack {ms['K3 pass (4 waves)']:.4f} ms "
+          f"({ms['K3 primary']:.4f} primary; bound {k3b_ms:.4f} ms, {k3by}; "
+          f"visits {k3work[0]}, box tests {k3work[1]}, triangle tests "
+          f"{k3work[2]}), {card}")
+
+    # 36. K6, the elementwise-rate probe.
+    k6.launch_k6.count = 0
+    k6_err = 0.0
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    print(f"K6 vs the plain chain at c = {k6.CHECK_C}, a = {k6.CHECK_A} "
+          f"(float32 rtol {k6.F32_RTOL:g}, bf16 bit-equal):")
+    for shape, dtype in (((256, 128), torch.float32), ((512, 128), torch.bfloat16),
+                         ((K6_N,), torch.float32), ((2 * K6_N,), torch.bfloat16)):
+        x = (torch.rand(shape, generator=gen) + 0.5).to(dev, dtype)
+        want = k6.chain_reference(x, k6.CHECK_C, k6.CHECK_A)
+        ok, err, rel = k6.chain_agreement(
+            k6.launch_k6(x, k6.CHECK_C, k6.CHECK_A), want)
+        bad, _, bad_rel = k6.chain_agreement(
+            k6.launch_k6(x, k6.CHECK_C, k6.CHECK_A, fault=1), want)
+        print(f"  K6 {dtype} {tuple(shape)}: max abs err {err:.3g}, rel "
+              f"{rel:.3g}, {'ok' if ok else 'FAILS'}; planted no-op kernel: "
+              f"rel {bad_rel:.3g}, {'passes' if bad else 'caught'}")
+        assert ok, f"K6 {dtype} {tuple(shape)}"
+        assert not bad, f"K6's no-op fault passes at {dtype} {tuple(shape)}"
+        k6_err = max(k6_err, err)
+    xf = torch.rand(K6_N, generator=gen).to(dev) + 0.5
+    xb = (torch.rand(2 * K6_N, generator=gen) + 0.5).to(dev, torch.bfloat16)
+    k6.launch_k6.count = 0  # the probe's own launches: the timed ones
+    timed = {"f32": (lambda: k6.launch_k6(xf), 20),
+             "bf16": (lambda: k6.launch_k6(xb), 20),
+             "plain f32": (lambda: k6.chain_reference(xf), 2),
+             "plain bf16": (lambda: k6.chain_reference(xb), 2)}
+    tms6 = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        tms6[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    ms6 = {name: sum(v) / len(v) for name, v in tms6.items()}
+    k6_launches = k6.launch_k6.count
+    f32_rate = K6_N / (ms6["f32"] * 1e-3)
+    bf16_rate = 2 * K6_N / (ms6["bf16"] * 1e-3)
+    # Bounds: each element read and written once (4 or 2 bytes each way),
+    # N_OPS FMAs (2 flops) an element.
+    f32_flops, bf16_flops = K6_N * k6.N_OPS * 2, 2 * K6_N * k6.N_OPS * 2
+    f32_bound_ms = max(f32_flops / RATES["fp32"],
+                       K6_N * 8 / HBM_BYTES_PER_S) * 1e3
+    bf16_bound_ms = max(bf16_flops / BF16X2_RATE,
+                        2 * K6_N * 4 / HBM_BYTES_PER_S) * 1e3
+    for name, v in tms6.items():
+        print(f"K6 {name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    print(f"K6: float32 {f32_rate / 1e9:.2f} G elements/s "
+          f"({f32_flops / (ms6['f32'] * 1e-3) / 1e12:.2f} TFLOP/s, bound "
+          f"{f32_bound_ms:.4f} ms), bf16 {bf16_rate / 1e9:.2f} G elements/s "
+          f"({bf16_flops / (ms6['bf16'] * 1e-3) / 1e12:.2f} TFLOP/s, bound "
+          f"{bf16_bound_ms:.4f} ms); bf16 / float32 elements/s "
+          f"{bf16_rate / f32_rate:.3f}, {card}")
+    sass_opcodes(build.library_path("probe"))
+
+    return [{
+        "name": "K5 paged BVH traversal",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/paged.cu",
+        "replaces": "vrenderer_pathtracer_tpu/accel/pallas_paged.py:49",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": ms["K5 pass (4 waves)"],
+        "ms_primary_wave": ms["K5 primary"],
+        "k3_single_level_ms": ms["K3 pass (4 waves)"],
+        "renderer_pass_ms": ms["Renderer pass"],
+        "plain_ms": ms["plain pass (4 waves)"],
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": None,
+    }, {
+        "name": "K6 bf16 elementwise probe",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/probe.cu",
+        "replaces": ".bench/bf16_vpu.py:23",
+        "launches": k6_launches,
+        "max_abs_err": k6_err,
+        "ms": ms6["bf16"],
+        "f32_ms": ms6["f32"],
+        "f32_bound_ms": f32_bound_ms,
+        "bf16_over_f32_elements_per_s": bf16_rate / f32_rate,
+        "plain_ms": ms6["plain bf16"],
+        "bound_ms": bf16_bound_ms,
+        "bound_by": "operations",
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1468,6 +2072,7 @@ def main() -> int:
         lambda st: st.n_pixels * st.samples_per_pass * st.bounces)
     work_dir = build.BUILD_DIR / "smoke"
     k4_row = k4_phases(dev, card, work_dir, str(work_dir / "nm_sphere.obj"))
+    c5_rows = config5_phases(dev, card, work_dir)
 
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
@@ -1496,7 +2101,7 @@ def main() -> int:
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,
-    }, *mesh_rows, k4_row]}))
+    }, *mesh_rows, k4_row, *c5_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: K1, K2, K3, K3b and K4 against their plain
+"""PyTorch port on the card: K1, K2, K3, K3b, K4, K5 and K6 against their plain
 versions, the Renderer and the train steps on CUDA, and the failure paths
 of the build and the dispatch.
 
@@ -18,7 +18,12 @@ K3 and K3b are held to chip_smoke.py's traversal contract against the plain
 rays and the winning triangle on all but 2e-5 (none of these 4,096), t to
 rtol 1e-4 where the triangle is the same, and a miss returns t_max.
 K4 is held to chip_smoke.py's K4 contract (``k4_contract``) against
-``records_reference``, record by record and on the composed image.
+``records_reference``, record by record and on the composed image.  K5 is
+held to K3's contract against ``traverse_paged_reference`` and
+``brute_force``; K6 to the plain chain at ``probe.CHECK_C``/``CHECK_A``,
+where the chain moves in both dtypes (float32 rtol 1e-4: the plain chain
+rounds product and sum apart, the kernel fuses them; bf16 bit-equal), and
+its planted no-op kernel must fail that check.
 """
 
 import numpy as np
@@ -577,4 +582,158 @@ def test_failed_mesh_build_raises(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
     with pytest.raises(RuntimeError, match="nvcc failed for mesh"):
         build.build("mesh")
+    assert not list(tmp_path.iterdir())
+
+
+# -- K5 and K6 ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def paged_meshes(tmp_path_factory):
+    """A 3,120-triangle sphere in 7 pages of 512, on the card and the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vrenderer_pathtracer_tpu_torch.accel.paged import pack_mesh_paged
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    p = tmp_path_factory.mktemp("k5") / "s.obj"
+    write_uv_sphere(p, 12.0, 40, 40)
+    host = load_obj(str(p))
+    return (pack_mesh_paged(host, 512, device="cuda"),
+            pack_mesh_paged(host, 512, device="cpu"))
+
+
+def test_k5_matches_plain_and_brute_force(paged_meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+
+    card, cpu = paged_meshes
+    o, d, t = _mesh_rays("cuda")
+    before = k5.launch_k5.count
+    got = k5.traverse_paged_cuda(card, o, d, t)
+    torch.cuda.synchronize()
+    assert k5.launch_k5.count == before + 1
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    before = trav.traverse_paged_reference.count
+    want = trav.traverse_paged_reference(card, o, d, t)
+    _assert_traversal_contract(card, got, want, t)
+    _assert_traversal_contract(card, got, trav.brute_force(card, o, d, t), t)
+    on_cpu = k5.traverse_paged_cuda(cpu, o.cpu(), d.cpu(), t.cpu())
+    assert trav.traverse_paged_reference.count == before + 2
+    _assert_traversal_contract(cpu, tuple(x.cpu() for x in got), on_cpu, t.cpu())
+    stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    k5.launch_k5(card, o, d, t, stats=stats)
+    visits, boxes, tris, pages = stats.tolist()
+    assert 0 < pages < visits <= boxes and tris > 0
+
+
+def test_k5_planted_faults_break_the_contract(paged_meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import hit_agreement
+
+    card, _ = paged_meshes
+    o, d, t = _mesh_rays("cuda", seed=8)
+    want = k5.launch_k5(card, o, d, t)
+    for name in ("global slot one page off", "nearest page skipped"):
+        a = hit_agreement(card, k5.launch_k5(card, o, d, t,
+                                              fault=k5.FAULTS[name]), want, t)
+        assert a["geometry_mismatch"] + a["hit_mismatch"] > 1e-3, (name, a)
+
+
+def test_k5_nan_rays_leave_others_bit_identical(paged_meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+
+    card, _ = paged_meshes
+    o, d, t = _mesh_rays("cuda", seed=9)
+    bad = torch.zeros(o.shape[0], dtype=torch.bool, device="cuda")
+    bad[::7] = True
+    bad[3::11] = True
+    o2, d2 = o.clone(), d.clone()
+    o2[::7] = float("nan")
+    d2[3::11, 1] = float("nan")
+    clean, mixed = k5.launch_k5(card, o, d, t), k5.launch_k5(card, o2, d2, t)
+    for a, b in zip(clean, mixed):
+        assert torch.equal(a[~bad], b[~bad])
+    assert (mixed[0][bad] == -1).all()
+    again = k5.launch_k5(card, o, d, t)
+    assert all(torch.equal(a, b) for a, b in zip(clean, again))
+
+
+def test_k5_refuses_what_it_does_not_take(paged_meshes, meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+
+    card, _ = paged_meshes
+    o, d, t = _mesh_rays("cuda", n=64)
+    with pytest.raises(NotImplementedError):
+        k5.traverse_paged_cuda(meshes[0], o, d, t)  # a single-level mesh
+    with pytest.raises(ValueError):
+        k5.traverse_paged_cuda(card, o.cpu(), d.cpu(), t.cpu())
+    with pytest.raises(ValueError):
+        k5.traverse_paged_cuda(card, o, d, t[:-1])
+    empty = k5.traverse_paged_cuda(card, o[:0], d[:0], t[:0])
+    assert empty[0].shape == (0,)
+
+
+def test_paged_renderer_on_card_runs_k5_and_matches_cpu(paged_meshes):
+    """A config-5-shaped scene (paged mesh, HDRI, MERL, FXAA, remat): on the
+    card it resolves to the wavefront with K5 and compact waves, runs K5
+    `bounces` times a pass and never the plain search, and matches the CPU."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE
+
+    rng = np.random.default_rng(0)
+    hdr = rng.uniform(0.2, 1.2, (16, 32, 3)).astype(np.float32)
+    imgs = []
+    for mesh in paged_meshes:
+        r = vpt.Renderer(64, 32, settings=vpt.RenderSettings(
+            samples_per_pass=2, bounces=3, use_fxaa=True, use_brdf=True,
+            remat_bounces=True), device=mesh.device)
+        r.load_hdr(hdr)
+        r.load_brdf(np.full((3, TABLE_SIZE), 0.05, np.float32))
+        r.init_mesh(mesh)
+        r.update_camera(origin=(0.0, 0.0, 40.0))
+        before = (k5.launch_k5.count, trav.traverse_paged_reference.count)
+        imgs.append(r.render_frames(2))
+        if mesh.device.type == "cuda":
+            s = r.settings
+            assert (s.radiance_kernel, s.traversal, s.compact_waves) == (
+                "wavefront", "cuda_paged", True)
+            assert k5.launch_k5.count == before[0] + 2 * 3
+            assert trav.traverse_paged_reference.count == before[1]
+    _assert_contract(*[[torch.from_numpy(x) for x in pair] for pair in imgs])
+
+
+def test_k6_matches_plain_chain(cuda):
+    from vrenderer_pathtracer_tpu_torch.kernels import probe
+
+    g = torch.Generator().manual_seed(0)
+    xf = (torch.rand((256, 128), generator=g) + 0.5).to(cuda)
+    xb = (torch.rand((512, 128), generator=g) + 0.5).to(cuda, torch.bfloat16)
+    c, a = probe.CHECK_C, probe.CHECK_A
+    for x in (xf, xb):
+        before = probe.launch_k6.count
+        got = probe.chain(x, c, a)
+        assert probe.launch_k6.count == before + 1
+        want = probe.chain_reference(x, c, a)
+        # float32 within probe.F32_RTOL (fmaf against two roundings a
+        # step), bfloat16 bit-equal.
+        assert probe.chain_agreement(got, want)[0], x.dtype
+        # The planted no-op kernel (the input written back) must fail.
+        assert not probe.chain_agreement(
+            probe.launch_k6(x, c, a, fault=1), want)[0], x.dtype
+    with pytest.raises(ValueError):
+        probe.launch_k6(xb.reshape(-1)[:3].contiguous())
+    with pytest.raises(ValueError):
+        probe.launch_k6(xf.double())
+
+
+def test_failed_paged_build_raises(cuda, monkeypatch, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["--no-such-flag"])
+    for name in ("paged", "probe"):
+        with pytest.raises(RuntimeError, match=f"nvcc failed for {name}"):
+            build.build(name)
     assert not list(tmp_path.iterdir())

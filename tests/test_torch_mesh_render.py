@@ -160,12 +160,17 @@ def test_cpu_mesh_scene_resolves_to_plain_paths(sphere_obj):
     assert trav.traverse.count == before[0] + 2  # one search per bounce
     assert (k3.launch_k3.count, k3.launch_k3b.count) == before[1:]
     for kw, err in ((dict(traversal="cuda"), ValueError),
+                    (dict(traversal="cuda_paged"), ValueError),
                     (dict(radiance_kernel="wavefront"), ValueError),
                     (dict(radiance_kernel="cuda_mesh"), ValueError),
-                    (dict(captured_attrs=True), NotImplementedError),
-                    (dict(sort_rays=True), NotImplementedError),
-                    (dict(compact_waves=True), NotImplementedError)):
+                    (dict(captured_attrs=True), NotImplementedError)):
         with pytest.raises(err):
             settings_for_scene(r.scene, s.replace(**kw))
+    # Ray sorting and compact waves are in scope: a single-level mesh
+    # keeps compact waves only on request.
+    for kw in (dict(sort_rays=True), dict(compact_waves=True)):
+        got = settings_for_scene(r.scene, s.replace(**kw))
+        assert got.traversal == "torch" and got.compact_waves == bool(
+            kw.get("compact_waves"))
     with pytest.raises(ValueError, match="MERL"):
         Scene(spheres=r.scene.spheres, brdf=torch.zeros(3, 8))

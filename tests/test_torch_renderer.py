@@ -105,7 +105,8 @@ def test_sync_render_records_stats():
 @pytest.mark.parametrize("call", [
     lambda r: r.load_hdr("sky.exr"),
     lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),
-    lambda r: r.toggle_fxaa(True),
+    lambda r: vpt.Renderer(4, 4, device="cpu", settings=vpt.RenderSettings(
+        captured_attrs=True)),
 ])
 def test_unported_methods_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -178,7 +179,7 @@ def test_load_texture_rejects_unknown_type():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(settings=vpt.RenderSettings(use_fxaa=True, **CORNELL)),
+    dict(settings=vpt.RenderSettings(captured_attrs=True, **CORNELL)),
     dict(settings=vpt.RenderSettings(**CORNELL), device_mesh=object()),
 ])
 def test_unported_constructor_options_raise(kw):

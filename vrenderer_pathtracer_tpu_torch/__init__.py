@@ -7,7 +7,9 @@ Cornell scene through one hand-written CUDA kernel a pass
 (``csrc/radiance.cu``), general mesh, example-sphere, HDRI, texture and
 MERL scenes through the fused kernel ``csrc/mesh.cu`` and its torch
 epilogue, and the rest through the torch wavefront with the BVH kernels of
-``csrc/traverse.cu``; the Cornell training step (``parallel/sharding.py``:
+``csrc/traverse.cu``, or, for a paged mesh (BASELINE config 5's
+~499k-triangle class), the paged kernel ``csrc/paged.cu`` with compact
+bounce waves, ray sorting, bounce remat and FXAA; the Cornell training step (``parallel/sharding.py``:
 ``train_step`` and ``opt_step``, whose loss and gradients come from
 ``csrc/grad.cu``); and the deferred-table step ``deferred_opt_step`` (HDRI,
 diffuse map and MERL table, by autograd through the fused kernel's

@@ -144,12 +144,14 @@ def launch_k3b(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None):
 launch_k3b.count = 0
 
 
-def hit_agreement(mesh: MeshData, got, want, t_max) -> dict:
+def hit_agreement(mesh: MeshData, got, want, t_max, want_mesh=None) -> dict:
     """How two closest-hit results ``(slot, t)`` on the same rays agree.
 
     A spatial split puts one triangle into several leaves, each copy with
     its own slot, so two traversal orders may return different slots for
     the same triangle: the winners are compared by their (v0, e1, e2) rows.
+    ``want_mesh``: ``want``'s slots index another pack of the same mesh
+    (a single-level and a paged one), whose rows copy the same vertices.
     Returns fractions of all rays: ``hit_mismatch`` (one hits, the other
     misses), ``geometry_mismatch`` (both hit, different triangles); and
     ``t_rel_max``, the largest |t_got - t_want| / t_want where both hit the
@@ -161,8 +163,8 @@ def hit_agreement(mesh: MeshData, got, want, t_max) -> dict:
     a, b = sg[both].long(), sw[both].long()
     same = torch.ones_like(a, dtype=torch.bool)
     for f in ("tri_v0", "tri_e1", "tri_e2"):
-        rows = getattr(mesh, f)
-        same &= (rows[a] == rows[b]).all(dim=1)
+        rows_b = getattr(want_mesh or mesh, f)[b]
+        same &= (getattr(mesh, f)[a] == rows_b).all(dim=1)
     err = (tg[both] - tw[both]).abs()[same]
     rel = err / tw[both].abs()[same]
     n = max(sg.shape[0], 1)

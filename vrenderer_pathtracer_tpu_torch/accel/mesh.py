@@ -32,6 +32,14 @@ STACK_DEPTH = 96
 # it, so a tree of ``d`` wide levels needs at most 7 * d + 1 entries
 # (``wide_stack_need``); 256 entries take trees up to 36 wide levels.
 WIDE_STACK_DEPTH = 256
+# pack_mesh's automatic choice: meshes of more triangles than this are
+# paged (accel/paged.py).  The JAX package decides by its VMEM budget, which
+# puts its single-level ceiling near 300k-440k triangles; a count between
+# the nm sphere (28,560) and BASELINE config 5's sphere (~499k) keeps both
+# on the JAX package's side.  An H100 holds either layout in device memory;
+# chip_smoke.py times K3 on a single-level pack of the config-5 mesh beside
+# K5 on its pages (PERF.md), the reading that would move this line.
+PAGED_MIN_TRIS = 1 << 18
 
 
 def wide_stack_need(max_depth8: int) -> int:
@@ -77,9 +85,29 @@ def binary_depth(nodes_i: np.ndarray) -> int:
     return depth
 
 
-def pack_mesh(mesh: HostMesh, pad_to: int = 128, *, device) -> MeshData:
+def auto_paged(n_tris: int) -> bool:
+    """``pack_mesh``'s automatic rule: page a mesh of more than
+    ``PAGED_MIN_TRIS`` triangles."""
+    return n_tris > PAGED_MIN_TRIS
+
+
+def pack_mesh(mesh: HostMesh, pad_to: int = 128, paged: bool | None = None,
+              *, device) -> MeshData:
     """Build the SBVH and gather triangle data into leaf-slot order, as
-    tensors on ``device``."""
+    tensors on ``device``.
+
+    ``paged``: True builds the two-level paged layout (``accel/paged.py``),
+    False the single-level one; None (auto) pages a mesh of more than
+    ``PAGED_MIN_TRIS`` (262,144) triangles (:func:`auto_paged`), so
+    BASELINE config 5's ~499k-triangle sphere is paged and the nm scene's
+    28,560-triangle sphere is not, as in the JAX package.
+    """
+    if paged is None:
+        paged = auto_paged(len(mesh.tris))
+    if paged:
+        from vrenderer_pathtracer_tpu_torch.accel.paged import pack_mesh_paged
+
+        return pack_mesh_paged(mesh, device=device)
     return pack_from_bvh(mesh, build_sbvh(mesh.verts, mesh.tris), pad_to,
                          device=device)
 

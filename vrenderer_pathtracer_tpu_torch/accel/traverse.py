@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF, STACK_DEPTH
+from vrenderer_pathtracer_tpu_torch.accel.mesh import (
+    MAX_LEAF, STACK_DEPTH, WIDE_STACK_DEPTH)
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData, Scene
@@ -93,6 +94,9 @@ def traverse(mesh: MeshData, ray_o, ray_d, t_max):
     Returns ``(slot [B] int32, t [B])``: slot -1 and t = t_max on a miss.
     ``traverse.count`` counts calls (the card's main path never makes one).
     """
+    if mesh.paged is not None:
+        raise ValueError("a paged mesh has no single-level tree: search it "
+                         "with traverse_paged_reference or K5")
     traverse.count += 1
     b = ray_o.shape[0]
     dev = ray_o.device
@@ -148,6 +152,113 @@ def traverse(mesh: MeshData, ray_o, ray_d, t_max):
 
 
 traverse.count = 0
+
+# Rays per step of the plain paged traversal: bounds its [rays, 64, 16]
+# leaf-block gathers (~270 MB at this size).
+PAGED_REFERENCE_CHUNK = 1 << 16
+
+
+def _wide_search(boxes, recs, pack, ray_o, ray_d, t_max):
+    """Lockstep closest-hit search over an 8-wide tree from root 0.
+
+    Each iteration pops one node per live ray, slab-tests its eight
+    children against the ray's best t, tests every triangle of its hit
+    leaf children (the first minimum in child order wins a tie) and pushes
+    its hit inner children far to near by entry distance.  A ray with
+    t_max <= 0 (or NaN) does no search."""
+    b, dev = ray_o.shape[0], ray_o.device
+    inv_d = _safe_inv(ray_d)
+    best_t = t_max.clone()
+    best_slot = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((b, WIDE_STACK_DEPTH), dtype=torch.int64, device=dev)
+    sp = (t_max > 0).long()
+    k8 = torch.arange(8, device=dev)
+    kl = torch.arange(MAX_LEAF, device=dev)
+    while True:
+        lane = torch.nonzero(sp > 0).squeeze(1)
+        if lane.numel() == 0:
+            break
+        sp_l = sp[lane] - 1
+        node = stack[lane, sp_l]
+        bx, rc = boxes[node], recs[node]        # [L,8,8], [L,8,2]
+        o, inv, bt = ray_o[lane], inv_d[lane], best_t[lane]
+        t0 = (bx[..., 0:3] - o[:, None]) * inv[:, None]
+        t1 = (bx[..., 3:6] - o[:, None]) * inv[:, None]
+        t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+        t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+        ref, cnt = rc[..., 0], rc[..., 1]
+        hit = ((torch.clamp(t_near, min=0.0)
+                <= torch.minimum(t_far, bt[:, None])) & (cnt >= 0))
+        leaf = hit & (cnt > 0)
+        sub = torch.nonzero(leaf.any(dim=1)).squeeze(1)
+        if sub.numel():
+            rows = ref[sub, :, None] + kl                      # [S,8,K]
+            valid = leaf[sub, :, None] & (kl < cnt[sub, :, None])
+            rows = torch.where(valid, rows, 0).reshape(sub.numel(), -1)
+            blk = pack[rows]                                    # [S,8K,16]
+            t, _, _, ok = _moller_trumbore(
+                o[sub], ray_d[lane[sub]], blk[..., 0:3], blk[..., 3:6],
+                blk[..., 6:9])
+            ok = ok & valid.reshape(sub.numel(), -1) & (t < bt[sub, None])
+            t = torch.where(ok, t, torch.full_like(t, float("inf")))
+            t_min, j = torch.min(t, dim=-1)
+            won = torch.isfinite(t_min)
+            slot = torch.gather(blk[..., 9], 1, j[:, None])[:, 0]
+            idx = lane[sub]
+            best_t[idx] = torch.where(won, t_min, bt[sub])
+            best_slot[idx] = torch.where(won, torch.round(slot).to(torch.int32),
+                                         best_slot[idx])
+        inner = hit & (cnt == 0)
+        key = torch.where(inner, t_near, torch.full_like(t_near, -float("inf")))
+        order = torch.argsort(key, dim=1, descending=True, stable=True)
+        child = torch.gather(ref, 1, order)                     # far first
+        m = inner.sum(dim=1)
+        pos = torch.clamp(sp_l[:, None] + k8, max=WIDE_STACK_DEPTH - 1)
+        put = k8 < m[:, None]
+        rows_l = lane[:, None].expand_as(pos)
+        stack[rows_l[put], pos[put]] = child[put].long()
+        sp[lane] = sp_l + m
+    return best_slot, best_t
+
+
+@torch.no_grad()
+def traverse_paged_reference(mesh: MeshData, ray_o, ray_d, t_max):
+    """The closest hit per ray over a paged mesh, the plain version of K5
+    (``accel/cuda_paged.py``).
+
+    Returns ``(slot [B] int32, t [B])`` under the contract of
+    :func:`traverse`: slot -1 and t = t_max on a miss, slots global
+    (``page * page_tris + local``).  It walks the top-level tree and the
+    pages' trees as one 8-wide tree (``scene.PagedNodes``), in lockstep
+    over the rays, ``PAGED_REFERENCE_CHUNK`` rays at a time: a page whose
+    box the ray enters at or past its best t fails the slab test and is
+    skipped, as K5's occlusion skip does.  ``.count`` counts calls (the
+    card's main path never makes one).
+    """
+    traverse_paged_reference.count += 1
+    pg = mesh.paged
+    if pg is None:
+        raise ValueError("traverse_paged_reference takes a paged mesh "
+                         "(accel/paged.py)")
+    b = ray_o.shape[0]
+    t_max = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=ray_o.device), (b,)).contiguous()
+    boxes = pg.nodes8_f.view(-1, 8, 8)
+    recs = pg.nodes8_i.view(-1, 8, 2).long()
+    slots, ts = [], []
+    for c0 in range(0, b, PAGED_REFERENCE_CHUNK):
+        c = slice(c0, c0 + PAGED_REFERENCE_CHUNK)
+        s, t = _wide_search(boxes, recs, pg.tri_pack, ray_o[c], ray_d[c],
+                            t_max[c])
+        slots.append(s)
+        ts.append(t)
+    if not slots:
+        return (torch.empty((0,), dtype=torch.int32, device=ray_o.device),
+                t_max.clone())
+    return torch.cat(slots), torch.cat(ts)
+
+
+traverse_paged_reference.count = 0
 
 
 @torch.no_grad()
@@ -279,21 +390,36 @@ def mesh_search(scene: Scene, settings: RenderSettings, ray_o, ray_d, t_max):
 
     The backend is the resolved ``settings.traversal``: ``"cuda"`` is
     ``traverse_cuda`` (K3, or K3b for a mesh without the 8-wide tree; the
-    plain version for CPU tensors); ``"torch"`` is the plain ``traverse``,
-    which the main path runs only on CPU tensors.
+    plain version for CPU tensors); ``"cuda_paged"`` is
+    ``traverse_paged_cuda`` (K5, for a paged mesh); ``"torch"`` is the
+    plain ``traverse``, or ``traverse_paged_reference`` for a paged mesh,
+    which the main path runs only on CPU tensors.  With
+    ``settings.sort_rays`` the search runs on coherence-sorted rays
+    (``accel/sorting.py::sorted_traverse``), results in the caller's order.
     """
+    from vrenderer_pathtracer_tpu_torch.accel.cuda_paged import traverse_paged_cuda
     from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import traverse_cuda
 
+    paged = scene.mesh.paged is not None
     if settings.traversal == "torch":
         if ray_o.device.type == "cuda":
             raise ValueError("traversal='torch' (the plain traversal) runs on "
                              "CPU tensors; a CUDA scene resolves to 'cuda' "
-                             "(settings_for_scene)")
-        search = traverse
+                             "or 'cuda_paged' (settings_for_scene)")
+        search = traverse_paged_reference if paged else traverse
+    elif settings.traversal == "cuda_paged" or (settings.traversal == "auto"
+                                                and paged):
+        search = traverse_paged_cuda  # the plain version for CPU tensors
     elif settings.traversal in ("cuda", "auto"):
         search = traverse_cuda  # the plain traversal for CPU tensors
     else:
         raise ValueError(f"unknown traversal {settings.traversal!r}")
+    if settings.sort_rays:
+        import functools
+
+        from vrenderer_pathtracer_tpu_torch.accel.sorting import sorted_traverse
+
+        search = functools.partial(sorted_traverse, search)
     slot, t = search(scene.mesh, ray_o.detach().contiguous(),
                      ray_d.detach().contiguous(), t_max.detach().contiguous())
     return slot.detach(), t.detach()

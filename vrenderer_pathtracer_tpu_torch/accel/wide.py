@@ -4,8 +4,9 @@ Host-side numpy, copied from the JAX package (which the port does not
 import): the SAH-optimal 8-wide grouping of the binary SBVH
 (:func:`_sah_wide_forest`, :func:`collapse_bvh8`) and the 8-aligned leaf
 blocks (:func:`build_leaf_packs`).  The JAX module's greedy collapse, lane-
-dense layouts and dense paged builder are not carried: the lane-dense forms
-are a TPU VMEM artifact, and the paged layout belongs to a later slice.
+dense layouts and dense paged builder are not carried: they are TPU VMEM
+artifacts.  The port's paged layout (``accel/paged.py``) is built from
+these same functions, one tree a page.
 
 Children are sorted at build time by box centroid along the widest axis of
 their union, and that axis is stored per node: K3 visits and pushes the

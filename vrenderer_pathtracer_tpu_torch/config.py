@@ -5,11 +5,14 @@ kept as a separate copy because importing the JAX package imports jax.  In
 the port the settings select code paths at call time (PyTorch runs
 eagerly); nothing is recompiled when they change.
 
-Fields that belong to parts of the JAX package not ported yet (compact
-bounce waves, ray sorting, attribute capture, FXAA) are kept so a settings
-object can be handed from one package to the other; the port raises
-``NotImplementedError`` where one of them asks for a path it does not
-have.
+Fields that belong to parts of the JAX package not ported yet (attribute
+capture) are kept so a settings object can be handed from one package to
+the other; the port raises ``NotImplementedError`` where one of them asks
+for a path it does not have.  ``compact_capacity_frac`` and
+``compact_mode`` size and switch the JAX package's static-capacity compact
+chain; the port compacts with the exact count and accepts them with no
+effect (``render/integrator.py::radiance``).  ``bounce_block_rows`` and
+``pre_tiled`` are TPU kernel block options with no effect here.
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ class RenderSettings:
       the K3/K3b mesh search); and to ``"torch"`` (the plain integrator)
       for a CPU-resident scene.  An explicit value must be the one the
       scene resolves to.
+    * ``traversal``        — mesh search: ``"auto"`` resolves to ``"cuda"``
+      (K3/K3b), ``"cuda_paged"`` (K5, a paged mesh) or ``"torch"`` (the
+      plain searches, CPU scenes)
+    * ``compact_waves``    — compact bounce waves; always on for a paged mesh
+    * ``sort_rays``        — coherence-sort rays before each mesh search
+    * ``remat_bounces``    — recompute each bounce in the backward pass
+    * ``use_fxaa``         — FXAA on the displayed image
     """
 
     width: int = 512

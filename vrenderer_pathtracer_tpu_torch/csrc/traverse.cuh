@@ -98,12 +98,13 @@ __device__ __forceinline__ void push(int* stack, int& sp, int cap, int node) {
   if (sp < cap) stack[sp++] = node;
 }
 
-// The closest hit of ray `r` with t < t_max over the 8-wide BVH: boxes
-// [N*8, 8] (child c of node w at row w*8+c: lo xyz, hi xyz, 0, 0), records
-// [N, 16] (8 x (ref, count); count 0 inner, > 0 leaf rows of `pack`, < 0
-// empty), axes [N], pack [T8, 16] (v0, e1, e2, slot, uv corners).  A ray
-// with t_max <= 0 (a dead lane), or NaN, returns a miss at once.  `w`
-// counts the work.
+// The closest hit of ray `r` with t < t_max over the 8-wide BVH below node
+// `root`: boxes [N*8, 8] (child c of node w at row w*8+c: lo xyz, hi xyz, 0,
+// 0), records [N, 16] (8 x (ref, count); count 0 inner, > 0 leaf rows of
+// `pack`, < 0 empty), axes [N], pack [T8, 16] (v0, e1, e2, slot, uv
+// corners).  A ray with t_max <= 0 (a dead lane), or NaN, returns a miss at
+// once.  `w` counts the work.  K3 and K4 search from root 0; K5 (paged.cu)
+// from the root of each page it enters.
 //
 // The eight slab tests of a node come first, then its hit leaves near to
 // far through one copy of the triangle test; inner children are pushed far
@@ -114,7 +115,8 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
                                              const int* __restrict__ recs,
                                              const int* __restrict__ axes,
                                              const float* __restrict__ pack,
-                                             const Ray& r, float t_max, Work& w) {
+                                             const Ray& r, float t_max, Work& w,
+                                             int root = 0) {
   Hit h;
   h.slot = -1;
   h.t = t_max;
@@ -122,7 +124,7 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
   if (!(t_max > 0.f)) return h;
   int stack[kWideStack];
   int sp = 1;
-  stack[0] = 0;
+  stack[0] = root;
   while (sp > 0) {
     const int node = stack[--sp];
     ++w.visits;

@@ -33,18 +33,34 @@ def _opt_f32(x, device):
 def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
     """A port ``MeshData`` from a JAX ``MeshData``'s leaves.
 
-    Only the sparse single-level layout converts: a paged or lane-dense JAX
+    The sparse single-level layout converts as it is; a lane-dense JAX
     mesh is a TPU layout and raises.  The 8-wide tree is held to K3's stack
     bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  The
     TPU kernel's win-time capture packs (``tri_aux_pack``,
     ``tri_nrm_pack``) are not carried: K4 reads tangents and uvs by slot.
+
+    A paged JAX mesh (``paged`` a ``PagedNodes`` or its leaves as a
+    mapping) carries its flat slot arrays, ``tri_count`` and page ``bbox``
+    across; its dense page layout is a TPU layout and is not read: the
+    port builds its own page trees over each page's slots
+    (``accel/paged.py::paged_from_slots``), so a slot names the same
+    triangle in both packages.
     """
     from vrenderer_pathtracer_tpu_torch.accel.mesh import (
         _check_stack_bound, _check_wide_stack_bound, binary_depth, wide_depth)
 
-    if mesh.get("paged") is not None:
-        raise ValueError("a paged JAX mesh is a TPU layout; pack the mesh "
-                         "with the port's accel/mesh.py::pack_mesh")
+    paged = mesh.get("paged")
+    if paged is not None:
+        from vrenderer_pathtracer_tpu_torch.accel.paged import paged_from_slots
+
+        if hasattr(paged, "_asdict"):
+            paged = paged._asdict()
+        if not isinstance(paged, Mapping) or "bbox" not in paged:
+            raise ValueError("a paged mesh's 'paged' must be a PagedNodes or "
+                             "a mapping holding its page 'bbox'")
+        return paged_from_slots(mesh, np.asarray(paged["bbox"]),
+                                int(np.asarray(mesh["tri_count"])),
+                                device=device)
     n8f = mesh.get("nodes8_f")
     if n8f is not None and np.shape(n8f)[-1] == 128:
         raise ValueError("a lane-dense JAX mesh is a TPU layout; pack the "

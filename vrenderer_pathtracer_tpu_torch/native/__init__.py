@@ -4,8 +4,9 @@ The same C ABI and the same Python surface as the JAX package's ``native``
 module, for the parts the mesh and MERL paths need: OBJ and PLY import, the
 SBVH build and the MERL-100 binary reader.  The library is built from
 ``native/csrc`` at first use (``native/build.py``).  EXR and FBX loading and
-the dense paged builder are not bound: HDRIs come in as arrays, and FBX and
-the paged layout belong to later slices (ROADMAP Queue 1 items 11 and 12).
+the dense paged builder are not bound: HDRIs come in as arrays, FBX belongs
+to a later slice (ROADMAP Queue 1 item 12), and the dense page layout is a
+TPU VMEM artifact (the port pages with ``accel/paged.py``).
 """
 
 from __future__ import annotations

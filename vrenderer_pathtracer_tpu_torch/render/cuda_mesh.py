@@ -111,7 +111,8 @@ def supports(scene: Scene, settings: RenderSettings) -> bool:
     records budgets, ``spp * bounces <= 32``).  Out of scope, and left to
     the wavefront: normal or specular maps (their values steer rays),
     ``use_brdf`` without a table, BRDF-typed or non-gray-specular spheres,
-    and a mesh without its 8-wide tree."""
+    a mesh without its 8-wide tree, and a paged mesh (as the JAX kernel
+    refuses one: the wavefront with K5 renders it)."""
     if settings.has_normal_map or settings.has_specular_map:
         return False
     if settings.use_brdf and not (settings.has_brdf and scene.brdf is not None):
@@ -124,7 +125,8 @@ def supports(scene: Scene, settings: RenderSettings) -> bool:
         return False
     if settings.has_mesh and not settings.use_example_sphere:
         mesh = scene.mesh
-        if mesh is None or mesh.nodes8_f is None or not cuda_traverse.supports(mesh):
+        if (mesh is None or mesh.paged is not None or mesh.nodes8_f is None
+                or not cuda_traverse.supports(mesh)):
             return False
     return True
 

@@ -23,12 +23,14 @@ Estimator (the JAX package's, constant for constant):
   built once a pass from the detached table, its two extra uniforms from
   the slot-2 draws).
 
-Compact bounce waves, attribute capture and ray sorting are not ported and
-raise ``NotImplementedError``.
+* Compact bounce waves (:func:`radiance`) and ``remat_bounces`` (each
+  bounce checkpointed, ``torch.utils.checkpoint``).  Attribute capture is
+  not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -184,12 +186,122 @@ def intersect_scene(scene: Scene, settings: RenderSettings, ray_o, ray_d,
     return hd
 
 
+class _Pass(NamedTuple):
+    """What every bounce of one :func:`radiance` call reads."""
+
+    scene: Scene
+    settings: RenderSettings
+    frame: object
+    fresnel_coef: object
+    fresnel_pow: object
+    seed: int
+    brdf_table: object
+    brdf_sampler: object
+    use_env: bool
+
+
+def _shade(ctx: _Pass, hd: HitData, ray_o, ray_d, mask, alive, pix, samp,
+           bounce: int):
+    """One bounce's shading from its hit record: the live-hit mask, the
+    emission term and the scattered ray's origin, direction and
+    throughput, on the lanes given (pixel and sample ids ``pix``, ``samp``
+    name each lane's RNG streams)."""
+    live_hit = alive & hd.hit
+    lh = live_hit[:, None]
+    emitted = torch.where(lh, mask * hd.emission, torch.zeros_like(mask))
+    u_reflect, _ = rng.uniform2(
+        ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 0))
+    u_phi, u_r = rng.uniform2(
+        ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 1))
+    u_b1 = u_b2 = None
+    if ctx.brdf_sampler is not None:
+        u_b1, u_b2 = rng.uniform2(
+            ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 2))
+    new_dir, mult = scatter(
+        ray_d, hd.normal, hd.tangent, hd.color, hd.spec_color, hd.hit_type,
+        u_reflect, u_phi, u_r, ctx.fresnel_coef, ctx.fresnel_pow,
+        brdf_table=ctx.brdf_table, brdf_sampler=ctx.brdf_sampler, u_b1=u_b1,
+        u_b2=u_b2)
+    return (live_hit, emitted,
+            torch.where(lh, hd.point + ORIGIN_OFFSET * hd.normal, ray_o),
+            torch.where(lh, new_dir, ray_d), torch.where(lh, mask * mult, mask))
+
+
+def _bounce(ctx: _Pass, bounce: int, pix, samp, ray_o, ray_d, mask, accum,
+            depth, alive, killed, env_w, env_dir, slot0=None):
+    """One bounce over the lanes given: intersect, record a miss (Cornell
+    kill, or the HDRI weight and direction), the first-hit depth, the
+    emission, and scatter.  Returns the new carry.
+
+    ``slot0``: the compact chain's bounce 0, whose mesh slots were searched
+    at full width; the hit is shaded from them (the sphere record is
+    recomputed: the same function on the same inputs)."""
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import shade_mesh_hit
+
+    settings = ctx.settings
+    if slot0 is not None:
+        prev = _intersect_sphere_set(ctx.scene, ray_o, ray_d)
+        hd = shade_mesh_hit(ctx.scene, settings, ray_o, ray_d, slot0, prev)
+    else:
+        hd = intersect_scene(ctx.scene, settings, ray_o, ray_d,
+                             alive=None if bounce == 0 else alive)
+    miss = alive & ~hd.hit
+    if settings.use_cornell_box:
+        killed = killed | miss
+    elif ctx.use_env:
+        env_w = env_w + torch.where(miss[:, None], mask, torch.zeros_like(mask))
+        env_dir = torch.where(miss[:, None], ray_d, env_dir)
+    if bounce == 0:
+        d0 = torch.linalg.norm(ray_o - hd.point, dim=-1) / settings.depth_scale
+        depth = torch.where(alive & hd.hit, d0, depth)
+    live_hit, emitted, ray_o, ray_d, mask = _shade(
+        ctx, hd, ray_o, ray_d, mask, alive, pix, samp, bounce)
+    return (ray_o, ray_d, mask, accum + emitted, depth, live_hit, killed,
+            env_w, env_dir)
+
+
+def _env_term(ctx: _Pass, env_w, env_dir):
+    """The collapsed HDRI fetch: ``env_w * hdr(env_dir)`` on the lanes that
+    ever missed.  Paths that never missed carry env_w = 0 and a stale
+    direction; an HDR asset may hold inf/NaN texels, and 0 * inf would
+    poison them."""
+    env_fetch = (sample_env_bilinear
+                 if ctx.settings.texture_filter == "bilinear"
+                 else sample_env_nearest)
+    ever_missed = torch.any(env_w != 0.0, dim=-1, keepdim=True)
+    return torch.where(ever_missed, env_w * env_fetch(ctx.scene.hdr, env_dir),
+                       torch.zeros_like(env_w))
+
+
+def _stepper(settings: RenderSettings):
+    """``run(fn, *args)``: ``fn(*args)``, or under ``remat_bounces`` the same
+    call checkpointed (``torch.utils.checkpoint``, non-reentrant): its
+    intermediates are recomputed in the backward pass instead of kept, so
+    a bounce holds only its carry."""
+    if not settings.remat_bounces:
+        return lambda fn, *args: fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
              sample_ids, frame, fresnel_coef, fresnel_pow, seed: int = 0):
     """Trace a ray batch for ``settings.bounces`` bounces.
 
     Returns ``(rgb [B,3], depth [B])``: the per-sample radiance estimate and
     the normalised first-hit depth.
+
+    Compact bounce waves (``settings.compact_waves``, on for every paged
+    mesh scene): the primary mesh search runs detached at full width; the
+    lanes that hit anything are gathered (``torch.nonzero``, the exact
+    count), and bounce-0 shading and every later bounce run at that width,
+    accumulating per compact lane, with one scatter back at the end.  Each
+    lane's arithmetic and RNG streams (its gathered pixel and sample ids)
+    are the full-width chain's, so the image is the same.  There is no
+    capacity: ``compact_capacity_frac`` and ``compact_mode`` (the JAX
+    package's static capacity and its ``lax.cond`` fallback ladder) are
+    accepted and have no effect, and no hit count can overflow.
     """
     from vrenderer_pathtracer_tpu_torch.ops.brdf_sampling import build_merl_sampler
 
@@ -201,67 +313,74 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
     brdf_sampler = None
     if settings.brdf_importance_sampling and brdf_table is not None:
         brdf_sampler = build_merl_sampler(brdf_table)
+    # Env-fetch collapse: a path misses at most once, so the per-bounce HDRI
+    # fetches fold into ONE fetch after the loop, from the weight and the
+    # direction at the miss.
+    use_env = (not settings.use_cornell_box and settings.has_hdr
+               and scene.hdr is not None)
+    ctx = _Pass(scene, settings, frame, fresnel_coef, fresnel_pow, seed,
+                brdf_table, brdf_sampler, use_env)
+    run = _stepper(settings)
     f32 = dict(dtype=torch.float32, device=ray_o.device)
     mask = torch.ones((n_rays, 3), **f32)
     accum = torch.zeros((n_rays, 3), **f32)
     depth = torch.ones((n_rays,), **f32)
     alive = torch.ones((n_rays,), dtype=torch.bool, device=ray_o.device)
     killed = torch.zeros_like(alive)  # Cornell mode: a miss kills the path
-    zero3 = torch.zeros_like(mask)
-    # Env-fetch collapse: a path misses at most once, so the per-bounce HDRI
-    # fetches fold into ONE fetch after the loop, from the weight and the
-    # direction at the miss.
-    use_env = (not settings.use_cornell_box and settings.has_hdr
-               and scene.hdr is not None)
     env_w = torch.zeros((n_rays, 3), **f32)
     env_dir = ray_d
+    compact = (settings.compact_waves and settings.has_mesh
+               and scene.mesh is not None and not settings.use_example_sphere)
 
-    for bounce in range(settings.bounces):
-        hd = intersect_scene(scene, settings, ray_o, ray_d,
-                             alive=None if bounce == 0 else alive)
-        miss = alive & ~hd.hit
-        live_hit = alive & hd.hit
+    if not compact:
+        carry = (ray_o, ray_d, mask, accum, depth, alive, killed, env_w,
+                 env_dir)
+        for bounce in range(settings.bounces):
+            carry = run(functools.partial(_bounce, ctx, bounce, pixel_ids,
+                                          sample_ids), *carry)
+        _, _, _, accum, depth, _, killed, env_w, env_dir = carry
+    elif settings.bounces > 0:
+        from vrenderer_pathtracer_tpu_torch.accel.traverse import mesh_search
+
+        # The primary search at full width, detached; its misses stay
+        # full width (the Cornell kill, or the HDRI weight and direction).
+        hd_sph = _intersect_sphere_set(scene, ray_o, ray_d)
+        slot0, _ = mesh_search(scene, settings, ray_o, ray_d, hd_sph.t)
+        hit = hd_sph.hit | (slot0 >= 0)
+        miss0 = ~hit
         if settings.use_cornell_box:
-            killed = killed | miss
+            killed = killed | miss0
         elif use_env:
-            env_w = env_w + torch.where(miss[:, None], mask, zero3)
-            env_dir = torch.where(miss[:, None], ray_d, env_dir)
-        if bounce == 0:
-            d0 = torch.linalg.norm(ray_o - hd.point, dim=-1) / settings.depth_scale
-            depth = torch.where(live_hit, d0, depth)
-
-        lh = live_hit[:, None]
-        accum = accum + torch.where(lh, mask * hd.emission, zero3)
-
-        u_reflect, _ = rng.uniform2(
-            seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 0))
-        u_phi, u_r = rng.uniform2(
-            seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 1))
-        u_b1 = u_b2 = None
-        if brdf_sampler is not None:
-            u_b1, u_b2 = rng.uniform2(
-                seed, pixel_ids, rng.make_stream(frame, sample_ids, bounce, 2))
-        new_dir, mult = scatter(
-            ray_d, hd.normal, hd.tangent, hd.color, hd.spec_color, hd.hit_type,
-            u_reflect, u_phi, u_r, fresnel_coef, fresnel_pow,
-            brdf_table=brdf_table, brdf_sampler=brdf_sampler, u_b1=u_b1,
-            u_b2=u_b2)
-
-        ray_o = torch.where(lh, hd.point + ORIGIN_OFFSET * hd.normal, ray_o)
-        ray_d = torch.where(lh, new_dir, ray_d)
-        mask = torch.where(lh, mask * mult, mask)
-        alive = live_hit
+            env_w = env_w + torch.where(miss0[:, None], mask,
+                                        torch.zeros_like(mask))
+            env_dir = torch.where(miss0[:, None], ray_d, env_dir)
+        # The hit lanes, compactly: radiance, the HDRI weight and
+        # direction, the Cornell kill and the depth accumulate per lane.
+        idx = torch.nonzero(hit).squeeze(1)
+        n_c = idx.shape[0]
+        d_c = ray_d[idx]
+        cc = (ray_o[idx], d_c, mask[idx], torch.zeros((n_c, 3), **f32),
+              torch.ones((n_c,), **f32),
+              torch.ones((n_c,), dtype=torch.bool, device=ray_o.device),
+              torch.zeros((n_c,), dtype=torch.bool, device=ray_o.device),
+              torch.zeros((n_c, 3), **f32), d_c)
+        pix_c, samp_c = pixel_ids[idx], sample_ids[idx]
+        for bounce in range(settings.bounces):
+            cc = run(functools.partial(
+                _bounce, ctx, bounce, pix_c, samp_c,
+                slot0=slot0[idx] if bounce == 0 else None), *cc)
+        _, _, _, acc_c, depth_c, _, kill_c, envw_c, envdir_c = cc
+        if use_env:
+            acc_c = acc_c + _env_term(ctx, envw_c, envdir_c)
+        accum = accum.index_add(0, idx, acc_c)
+        depth = depth.index_put((idx,), depth_c)
+        if settings.use_cornell_box:
+            killed = killed.index_put((idx,), kill_c)
 
     if use_env:
-        env_fetch = (sample_env_bilinear if settings.texture_filter == "bilinear"
-                     else sample_env_nearest)
-        # Paths that never missed carry env_w = 0 and a stale direction; an
-        # HDR asset may hold inf/NaN texels, and 0 * inf would poison them.
-        ever_missed = torch.any(env_w != 0.0, dim=-1, keepdim=True)
-        accum = accum + torch.where(ever_missed,
-                                    env_w * env_fetch(scene.hdr, env_dir), zero3)
+        accum = accum + _env_term(ctx, env_w, env_dir)
     if settings.use_cornell_box:
-        accum = torch.where(killed[:, None], zero3, accum)
+        accum = torch.where(killed[:, None], torch.zeros_like(accum), accum)
         depth = torch.where(killed, torch.zeros_like(depth), depth)
     return accum, depth
 

@@ -5,9 +5,10 @@ and a frame counter; every scene or camera edit resets ``frame=1`` and
 zeroes the buffer.  One pass is :func:`render_pass` on the resolved backend
 (``scene.settings_for_scene``): K1 for Cornell sphere scenes on the card,
 K4 for the general scenes it covers, the wavefront integrator
-(``render/integrator.py``, whose mesh search is K3/K3b on the card) for the
-rest and the plain integrator on the CPU; then the accumulation and the
-tonemap.
+(``render/integrator.py``, whose mesh search is K3/K3b, or K5 for a paged
+mesh, on the card) for the rest and the plain integrator on the CPU; then
+the accumulation, the tonemap and, with ``use_fxaa``, FXAA on the
+tonemapped image.
 
 Parts of the JAX ``Renderer`` that the port has not reached raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -22,6 +23,7 @@ import torch
 
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+from vrenderer_pathtracer_tpu_torch.ops.fxaa import fxaa
 from vrenderer_pathtracer_tpu_torch.ops.tonemap import tonemap
 from vrenderer_pathtracer_tpu_torch.render import integrator
 from vrenderer_pathtracer_tpu_torch.render.cuda_mesh import render_pass_mesh
@@ -31,7 +33,6 @@ from vrenderer_pathtracer_tpu_torch.scene.scene import (
 from vrenderer_pathtracer_tpu_torch.scene.spheres import build_sphere_set
 from vrenderer_pathtracer_tpu_torch.utils.profiling import RenderStats, synchronize
 
-FXAA_ITEM = "ROADMAP Queue 1 item 8 (ops/fxaa.py)"
 SHARDING_ITEM = "ROADMAP Queue 1 item 13 (parallel/sharding.py)"
 DIFFUSE, NORMAL, SPECULAR = 0, 1, 2  # texture types (reference vTextureType)
 
@@ -58,11 +59,14 @@ def render_pass(scene, settings, camera, frame, fresnel_coef, fresnel_pow,
 
 
 def _render_step(scene, camera, accum, frame, fresnel_coef, fresnel_pow,
-                 settings, seed):
+                 fxaa_params, settings, seed):
     rgb, depth = render_pass(scene, settings, camera, frame, fresnel_coef,
                              fresnel_pow, seed)
     accum.add_(rgb)  # in place: the buffer is the renderer's own state
     img = tonemap(accum, frame, settings.gamma)
+    if settings.use_fxaa:
+        h, w = settings.height, settings.width
+        img = fxaa(img.reshape(h, w, 3), *fxaa_params).reshape(-1, 3)
     return img, depth
 
 
@@ -82,12 +86,12 @@ class Renderer:
             # The tensors' own device, so that device checks compare equal.
             self.device = torch.device("cuda", torch.cuda.current_device())
         base = settings or RenderSettings()
-        if base.use_fxaa:
-            _not_ported("FXAA", FXAA_ITEM)
-        # The requested backends: every scene edit re-resolves them from the
-        # current scene (settings_for_scene).
+        # The requested backends and compact waves: every scene edit
+        # re-resolves them from the current scene (settings_for_scene), so
+        # compact waves do not stay on after a paged mesh is replaced.
         self._radiance_request = base.radiance_kernel
         self._traversal_request = base.traversal
+        self._compact_request = base.compact_waves
         self.settings = base.replace(width=width, height=height)
         self.scene = Scene.analytic(self.settings, self.device)
         self.camera = Camera.default(self.device)
@@ -95,6 +99,9 @@ class Renderer:
         f32 = dict(dtype=torch.float32, device=self.device)
         self.fresnel_coef = torch.tensor(0.1, **f32)
         self.fresnel_pow = torch.tensor(3.0, **f32)
+        # FXAA sliders (the reference UI's defaults).
+        self.fxaa_subpix_quality = 0.75
+        self.fxaa_edge_threshold = 0.166
         self.last_stats: Optional[RenderStats] = None
         self._mutate()
 
@@ -113,7 +120,8 @@ class Renderer:
             self.scene = self.scene.replace(**scene_updates)
         self.settings = settings_for_scene(self.scene, self.settings.replace(
             radiance_kernel=self._radiance_request,
-            traversal=self._traversal_request))
+            traversal=self._traversal_request,
+            compact_waves=self._compact_request))
         self.clear_buffer()
 
     # -- reference API ------------------------------------------------------
@@ -193,12 +201,14 @@ class Renderer:
         self._mutate(mesh=mesh)
 
     def load_mesh(self, path: str):
-        """Load an OBJ/PLY, build the SBVH and its 8-wide collapse, and
-        upload it (reference ``loadMesh``)."""
+        """Load an OBJ/PLY, build the SBVH and its 8-wide collapse, paged
+        above ``accel/mesh.py::PAGED_MIN_TRIS`` triangles, and upload it
+        (reference ``loadMesh``)."""
         from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
         from vrenderer_pathtracer_tpu_torch.native import load_mesh_file
 
-        self.init_mesh(pack_mesh(load_mesh_file(path), device=self.device))
+        self.init_mesh(pack_mesh(load_mesh_file(path), paged=None,
+                                 device=self.device))
 
     def use_brdf(self, enable: bool):
         """Shade the example sphere and the mesh with the MERL table
@@ -215,7 +225,15 @@ class Renderer:
         self._mutate(spheres=build_sphere_set(enable, self.device))
 
     def toggle_fxaa(self, enable: bool):
-        _not_ported("toggle_fxaa", FXAA_ITEM)
+        """Display-time toggle: keeps the accumulation (the reference only
+        switches its display shader)."""
+        self.settings = self.settings.replace(use_fxaa=enable)
+
+    def set_fxaa_params(self, *, subpix_quality=None, edge_threshold=None):
+        if subpix_quality is not None:
+            self.fxaa_subpix_quality = float(subpix_quality)
+        if edge_threshold is not None:
+            self.fxaa_edge_threshold = float(edge_threshold)
 
     # -- the frame loop -----------------------------------------------------
 
@@ -229,7 +247,9 @@ class Renderer:
         t0 = time.perf_counter() if sync else 0.0
         img, depth = _render_step(
             self.scene, self.camera, self._accum, self.frame,
-            self.fresnel_coef, self.fresnel_pow, self.settings, self.seed)
+            self.fresnel_coef, self.fresnel_pow,
+            (self.fxaa_subpix_quality, self.fxaa_edge_threshold),
+            self.settings, self.seed)
         self.frame += 1
         self._last_depth = depth
         if sync:
@@ -248,6 +268,9 @@ class Renderer:
         without running a pass."""
         h, w = self.settings.height, self.settings.width
         img = tonemap(self._accum, max(self.frame - 1, 1), self.settings.gamma)
+        if self.settings.use_fxaa:
+            img = fxaa(img.reshape(h, w, 3), self.fxaa_subpix_quality,
+                       self.fxaa_edge_threshold)
         depth = self._last_depth
         if depth is None:
             depth = torch.ones((self.settings.n_pixels,), dtype=torch.float32,

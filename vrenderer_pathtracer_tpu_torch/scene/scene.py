@@ -18,12 +18,43 @@ from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet, build_sphere
 
 TRAIN_HDR_ITEM = ("ROADMAP Queue 1 item 15 (TrainParams.hdr: a trainable "
                   "environment map through the wavefront integrator)")
-LARGE_MESH_SLICE = ("ROADMAP Queue 1 item 11 (large-mesh slice: paged "
-                    "traversal, compact bounce waves, ray sorting)")
 CAPTURE_ITEM = ("ROADMAP Queue 2, K3 options (win-time attribute capture, "
                 "decided from an H100 measurement)")
 
 _MAPS = ("hdr", "diffuse_map", "normal_map", "specular_map")
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedNodes:
+    """The two-level tree of a paged mesh (``accel/paged.py``).
+
+    Triangles are Morton-ordered into pages of ``page_tris`` slots, each
+    page with its own object-split SBVH collapsed to 8 wide.  The nodes of
+    all pages and a small 8-wide top-level tree over the page boxes share
+    one node space: nodes ``[0, n_top)`` are the top tree (root 0), whose
+    inner children of index ``>= n_top`` are the page roots;
+    every ref is global, and leaf rows of ``tri_pack`` record global slots
+    (``page * page_tris + local``), so the shading arrays of ``MeshData``
+    are the JAX package's flat page-blocked slot arrays.  K5
+    (``accel/cuda_paged.py``) walks the top tree and runs K3's per-ray
+    search inside each page; the plain version walks the whole tree.
+    """
+
+    bbox: torch.Tensor        # [P,8] float32 page box: lo xyz, hi xyz, 0, 0
+    nodes8_f: torch.Tensor    # [N*8,8] child boxes (lo3, hi3, 0, 0)
+    nodes8_i: torch.Tensor    # [N,16] 8 x (ref, count), global refs
+    nodes8_ax: torch.Tensor   # [N] build-time sort axis
+    tri_pack: torch.Tensor    # [T8,16] (v0, e1, e2, global slot, uv corners)
+    n_top: int                # nodes of the top-level tree
+    page_tris: int            # slots per page
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)]
+
+    @property
+    def n_pages(self) -> int:
+        return self.bbox.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +71,12 @@ class MeshData:
     The 8-wide collapse of the same tree (``nodes8_*``, ``tri_*pack``) is
     what K3 traverses; without it (``nodes8_f`` None) the card runs K3b on
     the binary nodes.  Only the sparse layout exists here: ``nodes8_f``
-    [N*8,8], ``tri_pack`` [T8,16].  ``paged`` is always None (the paged
-    layout belongs to the large-mesh slice).
+    [N*8,8], ``tri_pack`` [T8,16].
+
+    A paged mesh (``paged`` set, ``accel/paged.py``) carries its trees in
+    :class:`PagedNodes`; its ``nodes_f``/``nodes_i`` are one empty binary
+    root and its ``nodes8_*`` None, and its slot arrays are the JAX
+    package's page-blocked ones (no padding slack).
     """
 
     nodes_f: torch.Tensor   # [M,12] float32 — child AABBs (lo0,hi0,lo1,hi1)
@@ -53,22 +88,23 @@ class MeshData:
     tri_t: torch.Tensor     # [T,3,3] per-corner tangents
     tri_uv: torch.Tensor    # [T,3,2] per-corner uvs
     tri_count: torch.Tensor  # [] int32 — valid slots (rest is padding)
-    paged: None = None
+    paged: Optional[PagedNodes] = None
     nodes8_f: Optional[torch.Tensor] = None    # [N*8,8] child boxes (lo3,hi3,0,0)
     nodes8_i: Optional[torch.Tensor] = None    # [N,16] 8 x (ref,count)
     nodes8_ax: Optional[torch.Tensor] = None   # [N] build-time sort axis
     tri_pack: Optional[torch.Tensor] = None      # [T8,16] (v0,e1,e2,slot,uv corners)
 
     def __post_init__(self):
-        if self.paged is not None:
-            raise NotImplementedError(f"paged meshes: {LARGE_MESH_SLICE}")
+        if self.paged is not None and not isinstance(self.paged, PagedNodes):
+            raise TypeError(f"paged must be PagedNodes, got {type(self.paged)}")
         devices = {t.device for t in self.tensors()}
         if len(devices) != 1:
             raise ValueError(f"mesh tensors on several devices: {devices}")
 
     def tensors(self):
-        return [getattr(self, f.name) for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)]
+        own = [getattr(self, f.name) for f in dataclasses.fields(self)
+               if isinstance(getattr(self, f.name), torch.Tensor)]
+        return own + ([] if self.paged is None else self.paged.tensors())
 
     @property
     def device(self) -> torch.device:
@@ -143,11 +179,8 @@ def _resolve(request: str, want: str, what: str, device, also=()) -> str:
 def check_scope(settings: RenderSettings) -> None:
     """Raise ``NotImplementedError`` for settings the port does not cover
     yet, naming the ROADMAP item that does."""
-    for flag, item in (("compact_waves", LARGE_MESH_SLICE),
-                       ("sort_rays", LARGE_MESH_SLICE),
-                       ("captured_attrs", CAPTURE_ITEM)):
-        if getattr(settings, flag):
-            raise NotImplementedError(f"setting {flag}: {item}")
+    if settings.captured_attrs:
+        raise NotImplementedError(f"setting captured_attrs: {CAPTURE_ITEM}")
 
 
 def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings:
@@ -187,10 +220,14 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
         radiance = "cuda_mesh"
     else:
         radiance = "wavefront"
+    paged = scene.mesh is not None and scene.mesh.paged is not None
+    traversal = ("torch" if not on_cuda else
+                 "cuda_paged" if paged else "cuda")
     return resolved.replace(
         radiance_kernel=_resolve(settings.radiance_kernel, radiance,
                                  "radiance_kernel", scene.device,
                                  ("wavefront",) if on_cuda else ()),
-        traversal=_resolve(settings.traversal, "cuda" if on_cuda else "torch",
-                           "traversal", scene.device),
+        traversal=_resolve(settings.traversal, traversal, "traversal",
+                           scene.device),
+        compact_waves=settings.compact_waves or paged,
     )
