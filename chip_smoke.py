@@ -5,8 +5,8 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Card: print ``nvidia-smi``'s name and power limit.
-2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3 +
-   K3b (``csrc/traverse.cu``), K4 (``csrc/mesh.cu``), K5 (``csrc/paged.cu``)
+2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3,
+   K3b and K3c (``csrc/traverse.cu``), K4 (``csrc/mesh.cu``), K5 (``csrc/paged.cu``)
    and K6 (``csrc/probe.cu``) of
    ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
    started together; print the seconds and ptxas' report (registers,
@@ -111,8 +111,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    one page off, the nearest page skipped) must break it, and a third (a
    page's occlusion skip gated on the next entry's entry t with ``>``),
    which errs below the contract's allowance, must change rays of the full
-   spec waves; the skip faults must not lose every hit; NaN rays among the rays
-   of a wave leave every other ray's result bit-identical.
+   spec waves (every ray of those waves is also compared with the plain
+   version, and the rays apart counted); the skip faults must not lose
+   every hit; NaN rays among the rays of a wave leave every other ray's
+   result bit-identical.
 30. The compact chain against the full-width chain at 480x270: image and
    depth bit-identical.
 31. The config-5 ``Renderer`` on the card against the CPU at 64x32 on a
@@ -128,15 +130,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (K5 and K3 on the four spec waves, the plain version, the pass) and
    K5's bound from the work it counts (``paged_bound``).
 35. The K3 comparison: K3 on the single-level pack against K5 on the same
-   four waves (same triangles), with K3's bound.
+   four waves: the same triangle and hit/miss on every ray, exactly, which
+   K5's gate fault of phase 29 must break; K3's time and bound.
 36. K6, the bf16 probe: against the plain chain at the check constants
    (where the chain moves in both dtypes; float32 within 1e-4, bf16
    bit-equal), at the probe's shapes and at 2^22 / 2^23 elements, with a
    planted no-op kernel that must fail; then, at the probe's constants,
    elements/s of each, their ratio, the SASS FMA opcodes.
 
-The last lines are the kernel table (K1, K2, K3, K3b, K4, K5, K6) as one
-JSON object and then
+37. K3c (``csrc/traverse.cu``, K3 with win-time attribute capture) against
+   its plain version (``traverse`` + ``capture_reference``) on the nm
+   scene's four waves at 1024^2: slot and t under phase 13's contract and
+   bit-identical to K3's, every captured field within rtol 1e-4 / atol
+   1e-5 on the agreeing hits, zeros on the misses.
+38. Three planted K3c faults (u and v swapped, the tangent unnormalised,
+   the first winner's attributes kept), each of which must break it.
+39. The captured path: ``Renderer(1024, 1024)`` on the nm scene with
+   ``captured_attrs``, K3c ``bounces`` times a pass and no K3; the captured
+   pass against the recompute pass under the outlier contract of
+   tests/test_config3_textured_mesh.py; 10 alternating timing pairs of
+   the two passes; K3 and K3c times on the four waves; K3c's bound.
+40. BASELINE config 3 from files through ``cli.main(["render", ...])``:
+   a 69,452-triangle UV-sphere OBJ (for the 69,451-triangle bunny), 256^2
+   diffuse, normal and specular PNGs and a 128x256 PIZ EXR sky written by
+   the run into a temporary directory, 512x512, 2 spp, 4 bounces, 8
+   passes, with ``--out``, ``--out-exr``, ``--depth-out``, ``--metrics``
+   and ``--checkpoint-dir``: K3 4 times a pass and nothing else, the
+   files and the metrics log checked; a run stopped after 4 passes and
+   resumed to 8 writes the same files byte for byte; the CLI on the card
+   against the CPU at 32x32.
+
+The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
+one JSON object and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -400,13 +425,13 @@ def nm_assets():
     return hdr, tex, nmap, smap
 
 
-def nm_renderer(obj, width, height, device):
+def nm_renderer(obj, width, height, device, **settings):
     """The nm scene through the Renderer's own entry points."""
     from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
 
     hdr, tex, nmap, smap = nm_assets()
     r = Renderer(width, height, settings=RenderSettings(
-        samples_per_pass=2, bounces=4), device=device)
+        samples_per_pass=2, bounces=4, **settings), device=device)
     r.load_mesh(obj)
     r.load_texture(tex, 2.2, 0)
     r.load_texture(nmap, 2.2, 1)
@@ -1551,14 +1576,31 @@ def config5_phases(dev, card, work_dir):
     # last entry left on its stack (no farther box behind the hit: the
     # silhouette), a rate below the contract's hit/miss allowance.  It must
     # change rays of the full spec waves against the sound kernel.
-    changed = rays = 0
+    changed = rays = exact_off = gate_off = slot_off = 0
+    ref_s = 0.0
     for wv in spec_waves:
         good, bad = k5.launch_k5(mesh, *wv), k5.launch_k5(mesh, *wv, fault=gate)
         changed += int(((good[0] != bad[0]) | (good[1] != bad[1])).sum())
         rays += wv[0].shape[0]
+        t0 = time.perf_counter()
+        ref = trav.traverse_paged_reference(mesh, *wv)
+        torch.cuda.synchronize()
+        ref_s += time.perf_counter() - t0
+        for got, n in ((good, "sound"), (bad, "gate")):
+            a = k3.hit_agreement(mesh, got, ref, wv[2])
+            off = round((a["hit_mismatch"] + a["geometry_mismatch"]) * a["rays"])
+            if n == "sound":
+                exact_off += off
+                slot_off += int((got[0] != ref[0]).sum())
+            else:
+                gate_off += off
     print(f"  K5, the gate fault on the full spec waves: {changed} of {rays} "
           f"rays changed ({changed / rays:.3g}; the contract allows "
           f"{HIT_MISMATCH_FRAC:g} hit/miss)")
+    print(f"  K5 against traverse_paged_reference on every ray of the full "
+          f"spec waves ({ref_s:.1f} s for the plain version): rays that hit "
+          f"or miss apart or hit another triangle: sound kernel {exact_off} "
+          f"({slot_off} with another slot number), gate fault {gate_off}")
     assert changed > 0, "K5's gate fault changes no ray"
     o, d, t = small_waves[0]
     o2, d2 = o.clone(), d.clone()
@@ -1701,10 +1743,22 @@ def config5_phases(dev, card, work_dir):
           f"{b_ms / ms['K5 pass (4 waves)']:.1%} of bound, {card}")
 
     # 35. K3 on a single-level pack of the same mesh, the same four waves.
+    # The two run the same per-ray search (traverse.cuh) and find the same
+    # triangle on every ray, exactly: a limit that K5's gate fault, below
+    # the contract's allowance against the plain version, must break.
+    gate_off = 0
     for i, wv in enumerate(spec_waves):
-        check_hits(f"K3 single-level vs K5, spec wave {i}", flat,
-                   k3.launch_k3(flat, *wv), k5.launch_k5(mesh, *wv), wv[2],
-                   want_mesh=mesh)
+        want = k3.launch_k3(flat, *wv)
+        a = check_hits(f"K3 single-level vs K5, spec wave {i}", flat, want,
+                       k5.launch_k5(mesh, *wv), wv[2], want_mesh=mesh)
+        assert a["hit_mismatch"] == a["geometry_mismatch"] == 0, i
+        a = k3.hit_agreement(flat, want, k5.launch_k5(mesh, *wv, fault=gate),
+                             wv[2], want_mesh=mesh)
+        gate_off += round((a["hit_mismatch"] + a["geometry_mismatch"]) * a["rays"])
+    print(f"K5 and K3 on the single-level pack: the same triangle and hit/miss "
+          f"on every ray of the four spec waves; K5's gate fault: {gate_off} "
+          f"rays apart")
+    assert gate_off > 0, "K5's gate fault keeps K3's every winner"
     k3b_ms, k3by, k3work, _ = traversal_bound(flat, True, spec_waves)
     print(f"K3 comparison, config-5 waves: K5 {ms['K5 pass (4 waves)']:.4f} "
           f"ms a pass ({ms['K5 primary']:.4f} primary), K3 on the "
@@ -1796,6 +1850,326 @@ def config5_phases(dev, card, work_dir):
         "bound_by": "operations",
         "library_ms": None,
     }]
+
+# K3c and config 3 (phases 37-40).  K3c's contract against its plain
+# version (K3's traversal contract on slot and t, then the captured fields
+# against capture_reference at the plain traversal's winners, on the rays
+# where both hit the same triangle): rtol 1e-4 / atol 1e-5 on every
+# element (capture_contract), zeros on the misses.  Its work beyond K3's,
+# counted from csrc/traverse.cu: a hit reads the winner's e1 and e2 (12
+# bytes each), uv corners (24), tangent and normal corners (36 each), 120
+# bytes counted once for each triangle that wins in the pass (the rows stay
+# in L2, as the mesh does); K3c writes 11 floats for every ray; a hit
+# computes the face normal (9 FP32 operations), the uv (12) and two
+# interpolations (15 each), and three normalisations (17 FP32 with the IEEE
+# square root and division counted as TRAV_OPS counts a division, 2 SFU
+# each).
+CAPTURE_ROW_BYTES = 12 + 12 + 24 + 36 + 36
+CAPTURE_RAY_BYTES = 11 * 4
+CAPTURE_OPS = {"fp32_per_hit": 9 + 12 + 15 + 15 + 3 * 17, "sfu_per_hit": 3 * 2}
+CAPTURE_PAIRS = 10
+# BASELINE config 3 from its files: a UV sphere standing in for the
+# Stanford bunny (69,451 triangles; the bunny is not in the repository),
+# 256^2 diffuse, normal and specular PNGs from default_rng(0) and a
+# 128x256 PIZ EXR sky, 512x512, 2 spp a pass, 4 bounces, 8 passes, camera
+# at z = 40.
+C3_SPHERE = (12.0, 180, 194)     # 2 * 194 * 179 = 69,452 triangles
+C3_SIZE, C3_PASSES = 512, 8
+
+
+def capture_bound(mesh, waves, fields):
+    """(bound_ms, bound_by, rows) of K3c over one pass's ``waves``: K3's work
+    (``traversal_bound``) on each wave plus the capture's bytes and
+    operations on its hits, per wave the larger of bytes and operations
+    over the card's rates, summed.  A winning triangle's attribute row is
+    charged once, to the first wave in which it wins; ``rows`` counts
+    them."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    mesh_bytes = mesh_read_bytes(mesh, True)
+    total = by_ops = 0.0
+    read = torch.zeros(mesh.tri_e1.shape[0], dtype=torch.bool,
+                       device=mesh.tri_e1.device)
+    for i, (o, d, t) in enumerate(waves):
+        stats = torch.zeros(3, dtype=torch.int64, device=o.device)
+        slot = k3.launch_k3(mesh, o, d, t, stats=stats, capture=fields)[0]
+        visits, boxes, tris = (int(x) for x in stats.tolist())
+        won = torch.zeros_like(read)
+        won[slot[slot >= 0].long()] = True
+        hits, rows = int((slot >= 0).sum()), int((won & ~read).sum())
+        read |= won
+        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
+                       + tris * TRAV_OPS["fp32_per_tri"]
+                       + hits * CAPTURE_OPS["fp32_per_hit"],
+               "sfu": tris * TRAV_OPS["sfu_per_tri"]
+                      + hits * CAPTURE_OPS["sfu_per_hit"],
+               "int32": visits * TRAV_OPS["int32_per_visit"]
+                        + boxes * TRAV_OPS["int32_per_box"]}
+        t_ops = max(ops[k] / RATES[k] for k in ops)
+        n_bytes = (o.shape[0] * (4 + 8 + CAPTURE_RAY_BYTES)
+                   + int((t > 0).sum()) * 24 + rows * CAPTURE_ROW_BYTES
+                   + (mesh_bytes if i == 0 else 0))
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        total += max(t_ops, t_bytes)
+        by_ops += t_ops if t_ops >= t_bytes else 0.0
+    return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
+            int(read.sum()))
+
+
+def capture_reading(name, a):
+    """Print a ``capture_agreement`` reading."""
+    fields = ", ".join(f"{f} max abs {v['abs_max']:.3g} (excess over rtol "
+                       f"{v['excess_max']:.3g}, {v['outside']} outside)"
+                       for f, v in a["fields"].items())
+    print(f"  {name}: {a['rays']} agreeing hits; {fields}; misses zero: "
+          f"{a['miss_zero']}")
+
+
+def image_outliers(got, want):
+    """The outlier contract of tests/test_config3_textured_mesh.py on two
+    [N,3] images: (share of pixels with a max-channel error above 1e-3,
+    mean error of the others)."""
+    err = (got - want).abs().amax(dim=-1)
+    ok = err <= 1e-3
+    return (1.0 - ok.float().mean().item(),
+            err[ok].mean().item() if ok.any() else 0.0)
+
+
+def capture_phases(dev, card, nm_obj):
+    """Phases 37-39; returns K3c's row of the kernel table."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.render.integrator import render_camera_pass
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    # 37. K3c against its plain version on the nm scene's four waves.
+    r = nm_renderer(nm_obj, WIDTH, HEIGHT, dev)
+    s, mesh = r.settings, r.scene.mesh
+    fields = trav.capture_fields(s)
+    assert fields == tuple(trav.CAPTURE_WIDTHS), fields
+    waves = capture_waves(r)
+    print("K3c vs its plain version on the nm waves 1024^2 (K3's contract on "
+          "slot and t; fields rtol 1e-4 / atol 1e-5 on agreeing hits):")
+    max_err, wants = 0.0, []
+    for i, (o, d, t) in enumerate(waves):
+        got = k3.launch_k3(mesh, o, d, t, capture=fields)
+        plain = k3.launch_k3(mesh, o, d, t)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]), i
+        st = trav.traverse(mesh, o, d, t)
+        check_hits(f"K3c wave {i}", mesh, got[:2], st, t)
+        want = (*st, trav.capture_reference(mesh, o, d, st[0], fields))
+        wants.append(want)
+        a = k3.capture_agreement(mesh, got, want)
+        capture_reading(f"K3c wave {i}", a)
+        assert k3.capture_contract(a), f"K3c wave {i}"
+        max_err = max([max_err] + [v["abs_max"] for v in a["fields"].values()])
+    print("K3c's slot and t bit-identical to K3's on every wave")
+
+    # 38. Planted faults: each must break the contract on the waves.
+    print("planted K3c faults against the plain version, the four waves:")
+    for what, fault in k3.CAPTURE_FAULTS.items():
+        outside = dict.fromkeys(fields, 0)
+        worst = dict.fromkeys(fields, 0.0)
+        broken = False
+        for i, (o, d, t) in enumerate(waves):
+            a = k3.capture_agreement(
+                mesh, k3.launch_k3(mesh, o, d, t, capture=fields, fault=fault),
+                wants[i])
+            broken |= not k3.capture_contract(a)
+            for f, v in a["fields"].items():
+                outside[f] += v["outside"]
+                worst[f] = max(worst[f], v["abs_max"])
+        print(f"  {what}: elements outside the limits over the four waves "
+              + ", ".join(f"{f} {outside[f]} (max abs {worst[f]:.3g})"
+                          for f in fields))
+        assert broken, f"K3c, {what} passes"
+
+    # 39. The captured path through the Renderer: K3c bounces times a pass,
+    # no K3, no plain search; then the captured pass against the recompute
+    # pass (the outlier contract), and times in turns.
+    rc = nm_renderer(nm_obj, WIDTH, HEIGHT, dev, captured_attrs=True)
+    assert rc.settings.captured_attrs and not rc.settings.compact_waves
+    k3.launch_k3.count = k3.launch_k3.capture_count = 0
+    k3.launch_k3b.count = trav.traverse.count = 0
+    rc.render()
+    for i in range(MESH_PASSES):
+        img, depth = rc.render()
+    torch.cuda.synchronize()
+    k3c_launches = k3.launch_k3.capture_count
+    assert k3c_launches == s.bounces * (MESH_PASSES + 1), k3c_launches
+    assert k3.launch_k3.count == k3.launch_k3b.count == trav.traverse.count == 0
+    assert torch.isfinite(img).all() and torch.isfinite(depth).all()
+    print(f"captured render path: nm scene {WIDTH}x{HEIGHT}, "
+          f"{MESH_PASSES + 1} passes, K3c launches {k3c_launches}, K3 0, "
+          f"plain traverse 0, image mean {img.mean().item():.4f}")
+    cs = rc.settings
+
+    def run(captured):
+        return render_camera_pass(rc.scene, cs.replace(captured_attrs=captured),
+                                  rc.camera, 1, rc.fresnel_coef, rc.fresnel_pow)
+
+    (cap_rgb, cap_d), (rec_rgb, rec_d) = run(True), run(False)
+    frac, mean = image_outliers(cap_rgb, rec_rgb)
+    print(f"captured vs recompute pass, nm 1024^2: {frac:.4%} pixels off by "
+          f">1e-3, mean {mean:.3g} over the rest, depth max abs "
+          f"{(cap_d - rec_d).abs().max().item():.3g}")
+    assert frac <= 0.02 and mean <= 1e-4
+    t = {True: [], False: []}
+    for i in range(CAPTURE_PAIRS):
+        for captured in ((True, False) if i % 2 else (False, True)):
+            t[captured].append(cuda_time_ms(lambda: run(captured), dev,
+                                            iters=1, warmup=0))
+    med = {k: float(np.median(v)) for k, v in t.items()}
+    wins = sum(c < f for c, f in zip(t[True], t[False]))
+    print(f"nm pass 1024^2: recompute median {med[False]:.3f} ms, captured "
+          f"median {med[True]:.3f} ms ({med[True] / med[False]:.3f}x), "
+          f"captured faster in {wins} of {CAPTURE_PAIRS} pairs, {card}")
+    print(f"  recompute: {', '.join(f'{x:.2f}' for x in t[False])} ms")
+    print(f"  captured:  {', '.join(f'{x:.2f}' for x in t[True])} ms")
+    timed = {
+        "K3 pass (4 waves)": lambda: [k3.launch_k3(mesh, *w) for w in waves],
+        "K3c pass (4 waves)": lambda: [k3.launch_k3(mesh, *w, capture=fields)
+                                       for w in waves],
+        "plain pass (4 waves)": lambda: [trav.capture_reference(
+            mesh, w[0], w[1], trav.traverse(mesh, *w)[0], fields) for w in waves],
+    }
+    tk = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        iters = 1 if name.startswith("plain") else 10
+        tk[name].append(cuda_time_ms(timed[name], dev, iters=iters, warmup=1))
+    ms = {name: sum(v) / len(v) for name, v in tk.items()}
+    for name, v in tk.items():
+        print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    b_ms, by, rows = capture_bound(mesh, waves, fields)
+    print(f"K3c bound per pass {b_ms:.4f} ms ({by}; {rows} winning triangles' "
+          f"attribute rows), measured "
+          f"{ms['K3c pass (4 waves)']:.4f} ms = "
+          f"{b_ms / ms['K3c pass (4 waves)']:.1%} of bound; K3 "
+          f"{ms['K3 pass (4 waves)']:.4f} ms on the same waves, {card}")
+    return {
+        "name": "K3c 8-wide BVH traversal with win-time attribute capture",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/traverse.cu",
+        "replaces": "vrenderer_pathtracer_tpu/accel/pallas_traverse.py:173",
+        "launches": k3c_launches,
+        "max_abs_err": max_err,
+        "ms": ms["K3c pass (4 waves)"],
+        "k3_ms_same_waves": ms["K3 pass (4 waves)"],
+        "captured_pass_ms": med[True],
+        "recompute_pass_ms": med[False],
+        "plain_ms": ms["plain pass (4 waves)"],
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def config3_assets(d):
+    """Config 3's files, written into ``d``: the OBJ, three maps, the sky."""
+    from PIL import Image
+
+    from vrenderer_pathtracer_tpu_torch.io import write_exr
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    write_uv_sphere(str(d / "bunny_standin.obj"), *C3_SPHERE)
+    rng = np.random.default_rng(0)
+    maps = {"diffuse": rng.uniform(0.1, 1, (256, 256, 3)),
+            "normal": rng.uniform(0, 1, (256, 256, 3)) * 0.2 + (0.4, 0.4, 0.8),
+            "specular": rng.uniform(0, 1, (256, 256, 3))}
+    for name, m in maps.items():
+        Image.fromarray((m * 255 + 0.5).astype(np.uint8)).save(d / f"{name}.png")
+    sky = rng.uniform(0, 1.5, (128, 256, 3)).astype(np.float32)
+    write_exr(str(d / "sky.exr"), sky, "piz")
+    return ["--mesh", str(d / "bunny_standin.obj"), "--hdr", str(d / "sky.exr"),
+            "--diffuse-map", str(d / "diffuse.png"),
+            "--normal-map", str(d / "normal.png"),
+            "--specular-map", str(d / "specular.png"),
+            "--camera", "0", "0", "40", "--quiet"]
+
+
+def config3_cli_phase(dev, card):
+    """Phase 40: config 3 from its files through ``cli.main(["render",
+    ...])`` on the card, its outputs, and a stopped and resumed run."""
+    import pathlib
+    import tempfile
+
+    from vrenderer_pathtracer_tpu_torch import cli
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.io import load_exr, load_image
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        scene = config3_assets(d)
+        n_tris = len(load_obj(str(d / "bunny_standin.obj")).tris)
+        print(f"config 3 assets: {n_tris} triangles, 3 maps 256^2, PIZ EXR "
+              f"sky 128x256, written in {time.perf_counter() - t0:.2f} s")
+        size = ["--width", str(C3_SIZE), "--height", str(C3_SIZE),
+                "--samples-per-pass", "2", "--bounces", "4"]
+        spp = str(2 * C3_PASSES)
+
+        def outputs(tag):
+            return ["--out", str(d / f"{tag}.png"),
+                    "--out-exr", str(d / f"{tag}.exr"),
+                    "--depth-out", str(d / f"{tag}_depth.png")]
+
+        ck = ["--checkpoint-every", "1", "--checkpoint-dir"]
+        k3.launch_k3.count = k3.launch_k3.capture_count = 0
+        k3.launch_k3b.count = trav.traverse.count = k4.launch_k4.count = 0
+        t0 = time.perf_counter()
+        assert cli.main(["render", *size, "--spp", spp, *scene, *outputs("a"),
+                         "--metrics", str(d / "a.jsonl"),
+                         *ck, str(d / "ck_a")]) == 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k3.launch_k3.count
+        assert launches == 4 * C3_PASSES, launches
+        assert (k3.launch_k3b.count == trav.traverse.count
+                == k4.launch_k4.count == k3.launch_k3.capture_count == 0)
+        img = load_image(str(d / "a.png"))
+        ex = load_exr(str(d / "a.exr"))
+        dep = load_image(str(d / "a_depth.png"))
+        events = [json.loads(x) for x in (d / "a.jsonl").read_text().splitlines()]
+        kinds = [e["event"] for e in events]
+        assert kinds == ["pass", "checkpoint"] * C3_PASSES + ["done"], kinds
+        pass_ms = [e["ms"] for e in events if e["event"] == "pass"]
+        assert img.shape == (C3_SIZE, C3_SIZE, 3) and ex.shape == img.shape
+        assert np.isfinite(ex).all() and dep.shape == img.shape
+        c = C3_SIZE // 2
+        assert img[c - 32:c + 32, c - 32:c + 32].mean() > 0.05, "the mesh is dark"
+        assert dep[c, c, 0] > 0.0, "the centre ray misses"
+        assert (d / "ck_a" / "latest").is_file()
+        print(f"config 3 via cli.main render {C3_SIZE}x{C3_SIZE}, {spp} spp in "
+              f"{C3_PASSES} passes, 4 bounces: {wall:.2f} s wall with load, "
+              f"K3 launches {launches}, K3b/K4/plain 0; per-pass ms from the "
+              f"metrics log {', '.join(f'{x:.1f}' for x in pass_ms)}; image "
+              f"mean {img.mean():.4f}, EXR mean {ex.mean():.4f}, {card}")
+        # Stopped after half the passes and resumed: the same files.
+        assert cli.main(["render", *size, "--spp", str(C3_PASSES), *scene,
+                         *ck, str(d / "ck_b")]) == 0
+        assert cli.main(["render", *size, "--spp", spp, *scene, *outputs("b"),
+                         *ck, str(d / "ck_b")]) == 0
+        same = {suffix: (d / f"a{suffix}").read_bytes()
+                == (d / f"b{suffix}").read_bytes()
+                for suffix in (".png", ".exr", "_depth.png")}
+        print(f"config 3 stopped at {C3_PASSES // 2} passes and resumed to "
+              f"{C3_PASSES}: files bitwise equal to the uninterrupted run: {same}")
+        assert all(same.values())
+        # The card against the CPU at 32x32, the same files and flags.
+        small = ["--width", "32", "--height", "32", "--samples-per-pass", "2",
+                 "--bounces", "4", "--spp", "4"]
+        pngs = []
+        for tag, extra in (("card", []), ("cpu", ["--cpu"])):
+            assert cli.main(["render", *small, *scene, *extra,
+                             "--out", str(d / f"s_{tag}.png")]) == 0
+            pngs.append(torch.from_numpy(load_image(str(d / f"s_{tag}.png"))))
+        frac, mean = image_outliers(pngs[0].reshape(-1, 3), pngs[1].reshape(-1, 3))
+        print(f"config 3 CLI 32x32, card vs CPU PNGs: {frac:.4%} pixels off by "
+              f">1e-3, mean {mean:.3g} over the rest")
+        assert frac <= 0.02 and mean <= 1e-4
 
 
 def main() -> int:
@@ -2073,6 +2447,8 @@ def main() -> int:
     work_dir = build.BUILD_DIR / "smoke"
     k4_row = k4_phases(dev, card, work_dir, str(work_dir / "nm_sphere.obj"))
     c5_rows = config5_phases(dev, card, work_dir)
+    k3c_row = capture_phases(dev, card, str(work_dir / "nm_sphere.obj"))
+    config3_cli_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
@@ -2101,7 +2477,7 @@ def main() -> int:
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
         "library_ms": None,
-    }, *mesh_rows, k4_row, *c5_rows]}))
+    }, *mesh_rows, k3c_row, k4_row, *c5_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: K1, K2, K3, K3b, K4, K5 and K6 against their plain
-versions, the Renderer and the train steps on CUDA, and the failure paths
-of the build and the dispatch.
+"""PyTorch port on the card: K1, K2, K3, K3c, K3b, K4, K5 and K6 against
+their plain versions, the Renderer and the train steps on CUDA, and the
+failure paths of the build and the dispatch.
 
 Every test here needs a CUDA device (and ``nvcc``) and skips without one.
 The file imports no jax, so on a machine with a card it runs on its own:
@@ -16,7 +16,10 @@ every rgb element (a flipped branch moves the sums by a whole path).
 K3 and K3b are held to chip_smoke.py's traversal contract against the plain
 ``traverse`` and ``brute_force``: hit/miss agrees on all but 1e-5 of the
 rays and the winning triangle on all but 2e-5 (none of these 4,096), t to
-rtol 1e-4 where the triangle is the same, and a miss returns t_max.
+rtol 1e-4 where the triangle is the same, and a miss returns t_max.  K3c's
+slot and t are K3's bit for bit, and its captured attributes are held to
+``capture_reference`` at its own winners within rtol 1e-4 / atol 1e-5
+(``capture_contract``), which each of its planted faults must break.
 K4 is held to chip_smoke.py's K4 contract (``k4_contract``) against
 ``records_reference``, record by record and on the composed image.  K5 is
 held to K3's contract against ``traverse_paged_reference`` and
@@ -423,6 +426,94 @@ def test_k3_refuses_what_it_does_not_take(meshes):
         k3.traverse_cuda(card, o, d, t[:-1])
     empty = k3.traverse_cuda(card, o[:0], d[:0], t[:0])
     assert empty[0].shape == (0,)
+
+
+K3C_FIELDS = [("normal",), ("normal", "uv"), ("normal", "tangent"),
+              ("normal", "uv", "tangent"), ("normal", "uv", "tangent", "smooth")]
+
+
+@pytest.mark.parametrize("fields", K3C_FIELDS)
+def test_k3c_matches_capture_reference(meshes, fields):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import capture_reference
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", seed=7)
+    before = (k3.launch_k3.count, k3.launch_k3.capture_count)
+    slot, tt, extras = k3.launch_k3(card, o, d, t, capture=fields)
+    torch.cuda.synchronize()
+    assert (k3.launch_k3.count, k3.launch_k3.capture_count) == (
+        before[0], before[1] + 1)
+    assert tuple(extras) == fields
+    plain = k3.launch_k3(card, o, d, t)
+    assert torch.equal(slot, plain[0]) and torch.equal(tt, plain[1])
+    assert (slot >= 0).sum() > 500
+    want = capture_reference(card, o, d, slot, fields)
+    a = k3.capture_agreement(card, (slot, tt, extras), (slot, tt, want))
+    assert k3.capture_contract(a), a
+    assert a["rays"] == int((slot >= 0).sum())
+
+
+def test_k3c_planted_faults_break_the_contract(meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import CAPTURE_WIDTHS
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", seed=8)
+    fields = tuple(CAPTURE_WIDTHS)
+    good = k3.launch_k3(card, o, d, t, capture=fields)
+    for what, fault in k3.CAPTURE_FAULTS.items():
+        bad = k3.launch_k3(card, o, d, t, capture=fields, fault=fault)
+        assert torch.equal(bad[0], good[0]) and torch.equal(bad[1], good[1])
+        a = k3.capture_agreement(card, bad, good)
+        assert not k3.capture_contract(a), what
+
+
+def test_k3c_refuses_what_it_does_not_take(meshes):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", n=64)
+    with pytest.raises(ValueError, match="wide kernel"):
+        k3.traverse_cuda(card.without_wide(), o, d, t, capture=("normal",))
+    with pytest.raises(ValueError, match="normal"):
+        k3.launch_k3(card, o, d, t, capture=("uv",))
+    for fault in k3.CAPTURE_FAULTS.values():
+        with pytest.raises(ValueError, match="every field"):
+            k3.launch_k3(card, o, d, t, capture=("normal",), fault=fault)
+    empty = k3.launch_k3(card, o[:0], d[:0], t[:0], capture=("normal",))
+    assert empty[2]["normal"].shape == (0, 3)
+
+
+def test_captured_renderer_on_card_runs_k3c_and_matches_cpu(meshes, tmp_path):
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    p = tmp_path / "s.obj"
+    write_uv_sphere(p, 14.0, 24, 32)
+    rng = np.random.default_rng(1)
+    hdr = rng.uniform(0, 1.5, (16, 32, 3)).astype(np.float32)
+    nmap = (rng.uniform(0, 1, (32, 32, 3)) * 0.2 + (0.4, 0.4, 0.8)).astype(np.float32)
+    smap = rng.uniform(0, 1, (32, 32, 3)).astype(np.float32)
+    imgs = []
+    for device in ("cuda", "cpu"):
+        r = vpt.Renderer(64, 32, settings=vpt.RenderSettings(
+            samples_per_pass=2, bounces=3, captured_attrs=True), device=device)
+        r.load_mesh(str(p))
+        r.load_texture(nmap, 2.2, 1)
+        r.load_texture(smap, 2.2, 2)
+        r.load_hdr(hdr)
+        r.update_camera(origin=(0.0, 0.0, 40.0))
+        before = (k3.launch_k3.count, k3.launch_k3.capture_count,
+                  trav.traverse.count)
+        imgs.append(r.render_frames(2))
+        if device == "cuda":
+            assert not r.settings.compact_waves
+            assert (k3.launch_k3.count, k3.launch_k3.capture_count,
+                    trav.traverse.count) == (before[0], before[1] + 2 * 3,
+                                             before[2])
+    _assert_contract(*[[torch.from_numpy(x) for x in pair] for pair in imgs])
 
 
 def test_mesh_renderer_on_card_runs_k3_and_matches_cpu(meshes, tmp_path):

@@ -158,7 +158,7 @@ def test_load_mesh_file_dispatch(tmp_path, host):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     with pytest.raises(IOError, match="cannot open"):
         native.load_obj(str(tmp_path / "missing.obj"))
-    with pytest.raises(NotImplementedError, match="FBX"):
+    with pytest.raises(IOError, match=r"load_fbx\(.*cannot open"):
         native.load_mesh_file(str(tmp_path / "m.fbx"))
     with pytest.raises(IOError, match="unknown mesh format"):
         native.load_mesh_file(str(tmp_path / "m.stl"))
@@ -172,5 +172,8 @@ def test_host_library_builds_from_the_port_sources():
     assert lib.is_file() and lib.parent == build.BUILD_DIR
     assert lib == build.library_path()
     assert build.CXXFLAGS == jbuild.CXXFLAGS  # the same tree on one machine
+    # The EXR and FBX sources too; the TPU dense page builder is not copied.
+    assert {"exr.cc", "piz.cc", "dwa.cc", "fbx.cc"} <= set(build.SOURCES)
+    assert "dense.cc" not in build.SOURCES
     for src in [*build.SOURCES, "math3.h"]:
         assert (build.CSRC / src).read_bytes() == (jbuild.CSRC / src).read_bytes()

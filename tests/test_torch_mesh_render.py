@@ -163,7 +163,7 @@ def test_cpu_mesh_scene_resolves_to_plain_paths(sphere_obj):
                     (dict(traversal="cuda_paged"), ValueError),
                     (dict(radiance_kernel="wavefront"), ValueError),
                     (dict(radiance_kernel="cuda_mesh"), ValueError),
-                    (dict(captured_attrs=True), NotImplementedError)):
+                    (dict(radiance_kernel="cuda"), ValueError)):
         with pytest.raises(err):
             settings_for_scene(r.scene, s.replace(**kw))
     # Ray sorting and compact waves are in scope: a single-level mesh

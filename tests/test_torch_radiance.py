@@ -157,19 +157,22 @@ def test_wrapper_rejects_other_devices():
 
 
 def test_unsupported_settings_raise():
-    from vrenderer_pathtracer_tpu_torch.render import integrator
+    from vrenderer_pathtracer_tpu_torch.interop import train_params_from_numpy
 
     s = RenderSettings(**PALLAS)
+    # Every setting is in scope now; a trainable HDRI in TrainParams is not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integrator.check_scope(s.replace(captured_attrs=True))
-    # Compact bounce waves and ray sorting are in scope (the large-mesh
-    # slice); the integrator takes them.
-    for flag in ("compact_waves", "sort_rays"):
-        integrator.check_scope(s.replace(**{flag: True}))
+        train_params_from_numpy({"hdr": np.zeros((4, 8, 3), np.float32)},
+                                device="cpu")
+    # Compact bounce waves, ray sorting and attribute capture are in scope
+    # (captured_attrs turns compact waves off, as in the JAX integrator).
+    scene = Scene.analytic(s, "cpu")
+    for flag in ("compact_waves", "sort_rays", "captured_attrs"):
+        got = settings_for_scene(scene, s.replace(**{flag: True}))
+        assert got.compact_waves == (flag == "compact_waves")
     # The MERL flags are in scope: K4 and the wavefront take them.
-    integrator.check_scope(s.replace(use_example_sphere=True, has_mesh=True,
-                                     has_brdf=True, use_brdf=True,
-                                     brdf_importance_sampling=True))
+    settings_for_scene(scene, s.replace(use_example_sphere=True, use_brdf=True,
+                                        brdf_importance_sampling=True))
     with pytest.raises(ValueError, match="MERL"):
         Scene(spheres=Scene.analytic(s, "cpu").spheres, brdf=torch.zeros(3, 8))
 

@@ -20,7 +20,7 @@ from vrenderer_pathtracer_tpu.core.camera import generate_rays as j_generate_ray
 from vrenderer_pathtracer_tpu.core.camera import pixel_ids as j_pixel_ids
 from vrenderer_pathtracer_tpu.render.integrator import render_pass as j_render_pass
 import vrenderer_pathtracer_tpu_torch as vpt
-from vrenderer_pathtracer_tpu_torch import interop
+from vrenderer_pathtracer_tpu_torch import cli, interop
 from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
 
 CORNELL = dict(use_cornell_box=True, has_hdr=False)
@@ -103,10 +103,10 @@ def test_sync_render_records_stats():
 
 
 @pytest.mark.parametrize("call", [
-    lambda r: r.load_hdr("sky.exr"),
+    lambda r: cli.main(["view", "--cpu", "--width", "4", "--height", "4"]),
     lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),
-    lambda r: vpt.Renderer(4, 4, device="cpu", settings=vpt.RenderSettings(
-        captured_attrs=True)),
+    lambda r: cli.main(["render", "--cpu", "--width", "4", "--height", "4",
+                        "--tiles", "2"]),
 ])
 def test_unported_methods_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -179,7 +179,8 @@ def test_load_texture_rejects_unknown_type():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(settings=vpt.RenderSettings(captured_attrs=True, **CORNELL)),
+    dict(settings=vpt.RenderSettings(**CORNELL),
+         device_mesh=("cuda:0", "cuda:1")),
     dict(settings=vpt.RenderSettings(**CORNELL), device_mesh=object()),
 ])
 def test_unported_constructor_options_raise(kw):

@@ -13,7 +13,10 @@ bounce waves, ray sorting, bounce remat and FXAA; the Cornell training step (``p
 ``train_step`` and ``opt_step``, whose loss and gradients come from
 ``csrc/grad.cu``); and the deferred-table step ``deferred_opt_step`` (HDRI,
 diffuse map and MERL table, by autograd through the fused kernel's
-epilogue).  Entry points run on the card unless the caller
+epilogue).  Assets load from files (OBJ, PLY, FBX, EXR, images: ``io/``),
+progressive renders checkpoint and resume (``render/progressive.py``), and
+``python -m vrenderer_pathtracer_tpu_torch render`` is the command line
+(``cli.py``).  Entry points run on the card unless the caller
 passes ``device="cpu"``; on the CPU the same API runs the plain PyTorch
 integrator and autograd.  The package never imports jax.
 """

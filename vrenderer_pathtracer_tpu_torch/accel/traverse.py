@@ -13,6 +13,11 @@ Differentiability (detached-hit convention): the search only yields the
 discrete winning slot per ray; the hit attributes (t, barycentrics, point,
 interpolated normal/tangent/uv) are recomputed afterwards with
 differentiable ops from the gathered triangle (``shade_mesh_hit``).
+
+Win-time attribute capture (``settings.captured_attrs``, forward only): the
+search also returns the winner's face normal, uv, tangent and smooth
+normal (K3c on the card, ``capture_reference`` on the CPU), and
+``shade_mesh_hit_captured`` shades from them without the recompute.
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF, DIFF
 # Triangle-test epsilon (the reference's own backends use 3e-10 and 3e-4;
 # this sits between).
 TRI_EPS = 1e-7
+
+# Win-time attribute capture: field -> component count (the JAX package's
+# pallas_traverse.CAPTURE_WIDTHS).
+CAPTURE_WIDTHS = {"normal": 3, "uv": 2, "tangent": 3, "smooth": 3}
 
 
 def _moller_trumbore(ray_o, ray_d, v0, e1, e2):
@@ -291,8 +300,6 @@ def shade_mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, slot,
     ``use_brdf``; the smooth interpolated normal only on the normal-map
     path, otherwise the flat face normal; emission 0; hit type BRDF or DIFF.
     """
-    from vrenderer_pathtracer_tpu_torch.render.integrator import HitData
-
     mesh = scene.mesh
     safe = torch.clamp(slot, min=0).long()
     r_tris = mesh.tri_v0.shape[0]
@@ -346,15 +353,7 @@ def shade_mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, slot,
         w * rows[:, 10] + u * rows[:, 12] + v * rows[:, 14],
     ], dim=-1)
     tangent = torch.stack(norm3(bary_mix(15)), dim=-1)
-
-    use_tex = not settings.use_brdf
-    texd, texn, texs = tex_ops.fetch_maps(
-        [scene.diffuse_map if settings.has_diffuse_map and use_tex else None,
-         scene.normal_map if settings.has_normal_map else None,
-         scene.specular_map if settings.has_specular_map and use_tex
-         else None],
-        uv[:, 0], uv[:, 1], settings.texture_filter)
-    color = texd if texd is not None else torch.ones_like(point)
+    texd, texn, texs = _surface_maps(scene, settings, uv)
 
     ne1 = [-rows[:, 3 + k] for k in range(3)]
     ne2 = [-rows[:, 6 + k] for k in range(3)]
@@ -366,11 +365,34 @@ def shade_mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, slot,
                                    tex_ops.decode_normal_map(texn))
     else:
         normal = face_n
+    return _merged_hit(settings, prev, slot >= 0, t, point, normal, tangent,
+                       texd, texs)
 
+
+def _surface_maps(scene: Scene, settings: RenderSettings, uv):
+    """The diffuse, normal and specular texels at ``uv`` ([B,2]), each None
+    where the scene lacks the map (diffuse and specular also under
+    ``use_brdf``)."""
+    use_tex = not settings.use_brdf
+    return tex_ops.fetch_maps(
+        [scene.diffuse_map if settings.has_diffuse_map and use_tex else None,
+         scene.normal_map if settings.has_normal_map else None,
+         scene.specular_map if settings.has_specular_map and use_tex
+         else None],
+        uv[:, 0], uv[:, 1], settings.texture_filter)
+
+
+def _merged_hit(settings: RenderSettings, prev, closer, t, point, normal,
+                tangent, texd, texs):
+    """The mesh hit where ``closer``, else the running hit ``prev``: color
+    from the diffuse texels (1 without), specular color from the specular
+    texels (0 without), emission 0, hit type BRDF or DIFF."""
+    from vrenderer_pathtracer_tpu_torch.render.integrator import HitData
+
+    color = texd if texd is not None else torch.ones_like(point)
     spec = texs if texs is not None else torch.zeros_like(point)
     hit_type = torch.full(t.shape, BRDF if settings.use_brdf else DIFF,
                           dtype=torch.int32, device=t.device)
-    closer = slot >= 0
     c3 = closer[:, None]
     return HitData(
         hit=prev.hit | closer,
@@ -383,6 +405,84 @@ def shade_mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, slot,
         emission=torch.where(c3, torch.zeros_like(point), prev.emission),
         hit_type=torch.where(closer, hit_type, prev.hit_type),
     )
+
+
+def capture_fields(settings: RenderSettings) -> tuple:
+    """The attributes the captured shading reads, the JAX rule: the face
+    normal always; uv with a normal map, or with diffuse or specular maps
+    when not ``use_brdf``; the tangent with a normal map or ``use_brdf``;
+    the smooth normal with a normal map."""
+    fields = ["normal"]
+    use_tex = not settings.use_brdf
+    if settings.has_normal_map or (use_tex and (settings.has_diffuse_map
+                                                or settings.has_specular_map)):
+        fields.append("uv")
+    if settings.has_normal_map or settings.use_brdf:
+        fields.append("tangent")
+    if settings.has_normal_map:
+        fields.append("smooth")
+    return tuple(fields)
+
+
+@torch.no_grad()
+def capture_reference(mesh: MeshData, ray_o, ray_d, slot, fields) -> dict:
+    """The plain version of K3c's extra outputs: ``{field: [B, k] float32}``
+    for the winners ``slot`` ([B] int32, -1 on a miss).
+
+    The winner's barycentrics are recomputed by Möller–Trumbore at the slot,
+    each field interpolated as ``w*c0 + u*c1 + v*c2`` from ``tri_uv``,
+    ``tri_t`` or ``tri_n`` (the face normal is ``e1 x e2``), and the three
+    directions normalised by ``rsqrt(max(|x|^2, 1e-40))``, as the Pallas
+    kernel does.  Miss lanes hold zeros.
+    """
+    unknown = set(fields) - set(CAPTURE_WIDTHS)
+    if unknown:
+        raise ValueError(f"unknown capture fields {sorted(unknown)}")
+    hit = slot >= 0
+    s = torch.clamp(slot, min=0).long()
+    e1, e2 = mesh.tri_e1[s], mesh.tri_e2[s]
+    _, u, v, _ = _moller_trumbore(ray_o, ray_d, mesh.tri_v0[s][:, None],
+                                  e1[:, None], e2[:, None])
+    u, v = u[:, 0, None], v[:, 0, None]
+    w = 1.0 - u - v
+
+    def bary(corners):  # [B, 3, k]
+        return w * corners[:, 0] + u * corners[:, 1] + v * corners[:, 2]
+
+    def unit(x):
+        sq = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+        return x * torch.rsqrt(torch.clamp(sq, min=1e-40))[:, None]
+
+    make = {"normal": lambda: unit(torch.linalg.cross(e1, e2)),
+            "uv": lambda: bary(mesh.tri_uv[s]),
+            "tangent": lambda: unit(bary(mesh.tri_t[s])),
+            "smooth": lambda: unit(bary(mesh.tri_n[s]))}
+    return {f: torch.where(hit[:, None], make[f](), 0.0) for f in fields}
+
+
+def shade_mesh_hit_captured(scene: Scene, settings: RenderSettings, ray_o,
+                            ray_d, slot, t, extras, prev):
+    """Forward-only shading from win-time captured attributes (port of the
+    JAX ``shade_mesh_hit_captured``): the hit point from the search's t,
+    the maps at the captured uv, the smooth normal through the TBN on the
+    normal-map path, else the face normal.  No attribute gather and no
+    Möller–Trumbore recompute; nothing flows back to the hit geometry."""
+    closer = slot >= 0
+    t_safe = torch.where(closer, t, torch.zeros_like(t))
+    point = ray_o + ray_d * t_safe[:, None]
+    texd = texn = texs = None
+    if "uv" in extras:
+        texd, texn, texs = _surface_maps(scene, settings, extras["uv"])
+    tangent = extras.get("tangent")
+    if tangent is None:
+        tangent = torch.zeros_like(point)
+    if settings.has_normal_map:
+        normal = tex_ops.apply_tbn(extras["smooth"], tangent,
+                                   tex_ops.decode_normal_map(texn))
+    else:
+        normal = extras["normal"]
+    return _merged_hit(settings, prev, closer, t, point, normal, tangent,
+                       texd, texs)
 
 
 def mesh_search(scene: Scene, settings: RenderSettings, ray_o, ray_d, t_max):
@@ -428,6 +528,32 @@ def mesh_search(scene: Scene, settings: RenderSettings, ray_o, ray_d, t_max):
 def mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, prev):
     """Mesh intersection vs the running closest hit (integrator hook): the
     detached search (:func:`mesh_search`), then the differentiable
-    attribute recompute (:func:`shade_mesh_hit`)."""
+    attribute recompute (:func:`shade_mesh_hit`).
+
+    With ``settings.captured_attrs`` (and not ``sort_rays``) on a
+    single-level mesh, the search captures the winner's attributes (K3c on
+    the card, the plain ``traverse`` + :func:`capture_reference` on CPU
+    tensors) and :func:`shade_mesh_hit_captured` shades from them, forward
+    only.  A paged mesh keeps its K5 search and ignores the setting, as
+    the JAX package's paged branch does.
+    """
+    if (settings.captured_attrs and not settings.sort_rays
+            and scene.mesh.paged is None):
+        from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import traverse_cuda
+
+        if settings.traversal not in ("cuda", "auto", "torch"):
+            raise ValueError(f"captured_attrs runs on K3's search, not "
+                             f"traversal={settings.traversal!r}")
+        if settings.traversal == "torch" and ray_o.device.type == "cuda":
+            raise ValueError("traversal='torch' (the plain traversal) runs on "
+                             "CPU tensors")
+        if scene.mesh.nodes8_f is None:
+            raise ValueError("attr capture needs the wide kernel: K3c walks "
+                             "the 8-wide tree, which this mesh lacks (K3b)")
+        slot, t, extras = traverse_cuda(
+            scene.mesh, ray_o.detach().contiguous(), ray_d.detach().contiguous(),
+            prev.t.detach().contiguous(), capture=capture_fields(settings))
+        return shade_mesh_hit_captured(scene, settings, ray_o, ray_d, slot, t,
+                                       extras, prev)
     slot, _ = mesh_search(scene, settings, ray_o, ray_d, prev.t)
     return shade_mesh_hit(scene, settings, ray_o, ray_d, slot, prev)

@@ -1,0 +1,216 @@
+"""Command-line front end of the port: ``render`` to PNG, EXR and depth PNG.
+
+The flags and defaults are the JAX package's ``cli.py``: asset loads
+(``--mesh`` OBJ/PLY/FBX, ``--hdr`` EXR, ``--brdf`` MERL, ``--*-map``
+images), scene toggles, camera, Fresnel and FXAA sliders, the progressive
+loop to ``--spp`` with ``--checkpoint-dir`` resume and a ``--metrics``
+JSONL log.  It renders on the card unless ``--cpu`` is given, and fails
+when there is no card.
+
+Example:
+    python -m vrenderer_pathtracer_tpu_torch render --cornell --width 512 \\
+        --height 512 --spp 64 --out cornell.png --depth-out depth.png
+
+Not ported yet, each raising ``NotImplementedError``: ``--tiles`` and
+``--sample-shards`` (sharded rendering), ``view`` (the terminal viewer)
+and ``bench``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+SHARDING_ITEM = ("ROADMAP Queue 1 item 13 (sharded rendering: --tiles, "
+                 "--sample-shards)")
+VIEW_ITEM = "ROADMAP Queue 1 item 14 (view.py, the terminal viewer)"
+BENCH_ITEM = "ROADMAP Queue 1 item 7 (the port's bench)"
+
+
+def _add_render_args(p: argparse.ArgumentParser):
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--spp", type=int, default=32, help="target samples per pixel")
+    p.add_argument("--samples-per-pass", type=int, default=2,
+                   help="samples per progressive pass (reference kSamps=2)")
+    p.add_argument("--bounces", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    # scene toggles
+    p.add_argument("--cornell", action="store_true", help="Cornell box mode")
+    p.add_argument("--example-sphere", action="store_true")
+    p.add_argument("--use-brdf", action="store_true",
+                   help="shade mesh/example sphere with the loaded MERL BRDF")
+    p.add_argument("--brdf-importance-sampling", action="store_true",
+                   help="importance-sample the measured BRDF lobe (MIS with "
+                        "cosine; lower variance on glossy tables)")
+    # assets
+    p.add_argument("--mesh", help="OBJ, PLY or FBX path")
+    p.add_argument("--hdr", help="EXR lat-long environment map")
+    p.add_argument("--brdf", help="MERL .binary path")
+    p.add_argument("--diffuse-map", help="image path (linearised at load)")
+    p.add_argument("--normal-map", help="image path")
+    p.add_argument("--specular-map", help="image path")
+    p.add_argument("--texture-gamma", type=float, default=2.2)
+    # camera
+    p.add_argument("--camera", type=float, nargs=3, metavar=("X", "Y", "Z"),
+                   default=None, help="camera origin (default 0 0 150)")
+    p.add_argument("--yaw", type=float, default=None, help="radians")
+    p.add_argument("--pitch", type=float, default=None, help="radians")
+    p.add_argument("--fov", type=float, default=None, help="degrees (default 75)")
+    # materials
+    p.add_argument("--fresnel-coef", type=float, default=0.1)
+    p.add_argument("--fresnel-power", type=float, default=3.0)
+    # post
+    p.add_argument("--fxaa", action="store_true")
+    p.add_argument("--fxaa-subpix", type=float, default=0.75)
+    p.add_argument("--fxaa-edge-threshold", type=float, default=0.166)
+    # outputs
+    p.add_argument("--out", help="PNG output path")
+    p.add_argument("--out-exr", help="EXR (linear accumulation) output path")
+    p.add_argument("--depth-out", help="PNG depth-channel output path")
+    # progressive / fault tolerance
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--metrics", help="JSONL metrics log path (per-pass ms, "
+                   "Mrays/s, checkpoint/resume events)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="passes between checkpoints (0 = off)")
+    # execution
+    p.add_argument("--cpu", action="store_true",
+                   help="render on the CPU (default: the CUDA card)")
+    p.add_argument("--tiles", type=int, default=0,
+                   help="tile shards (not ported: " + SHARDING_ITEM + ")")
+    p.add_argument("--sample-shards", type=int, default=1,
+                   help="sample shards (not ported: " + SHARDING_ITEM + ")")
+    p.add_argument("--quiet", action="store_true")
+
+
+def _build_renderer(args):
+    """A Renderer set up from the scene, camera and material flags, on the
+    card unless ``--cpu``."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+    from vrenderer_pathtracer_tpu_torch.io import load_image
+
+    if args.tiles or args.sample_shards > 1:
+        raise NotImplementedError(
+            f"--tiles/--sample-shards are not ported yet: {SHARDING_ITEM}")
+    settings = RenderSettings(
+        samples_per_pass=args.samples_per_pass,
+        bounces=args.bounces,
+        use_cornell_box=args.cornell,
+        use_example_sphere=args.example_sphere,
+        use_fxaa=args.fxaa,
+    )
+    r = Renderer(args.width, args.height, settings=settings, seed=args.seed,
+                 device="cpu" if args.cpu else "cuda")
+    if args.hdr:
+        r.load_hdr(args.hdr)
+    if args.mesh:
+        r.load_mesh(args.mesh)
+    if args.brdf:
+        r.load_brdf(args.brdf)
+    for kind, path in enumerate((args.diffuse_map, args.normal_map,
+                                 args.specular_map)):
+        if path:
+            r.load_texture(load_image(path), args.texture_gamma, kind)
+    if args.use_brdf:
+        r.use_brdf(True)
+    if args.brdf_importance_sampling:
+        r.settings = r.settings.replace(brdf_importance_sampling=True)
+    r.set_fresnel_coef(args.fresnel_coef)
+    r.set_fresnel_power(args.fresnel_power)
+    r.set_fxaa_params(subpix_quality=args.fxaa_subpix,
+                      edge_threshold=args.fxaa_edge_threshold)
+    cam_kw = {}
+    if args.camera is not None:
+        cam_kw["origin"] = args.camera
+    if args.yaw is not None:
+        cam_kw["yaw"] = args.yaw
+    if args.pitch is not None:
+        cam_kw["pitch"] = args.pitch
+    if args.fov is not None:
+        cam_kw["fov_deg"] = args.fov
+    if cam_kw:
+        r.update_camera(**cam_kw)
+    return r
+
+
+def cmd_render(args) -> int:
+    import numpy as np
+
+    from vrenderer_pathtracer_tpu_torch.io import save_depth_png, save_png, write_exr
+    from vrenderer_pathtracer_tpu_torch.render.progressive import ProgressiveScheduler
+
+    r = _build_renderer(args)
+    t0 = time.perf_counter()
+
+    def on_pass(i, spp):
+        if not args.quiet:
+            dt = time.perf_counter() - t0
+            print(f"pass {i}: {spp} spp, {dt:.2f}s, "
+                  f"{dt / max(i, 1) * 1e3:.1f} ms/pass", file=sys.stderr)
+
+    sched = ProgressiveScheduler(
+        r, target_spp=args.spp,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        on_pass=on_pass,
+        metrics_path=args.metrics,
+    )
+    if args.checkpoint_dir and sched.resume_if_possible() and not args.quiet:
+        print(f"resumed at {r.samples_per_pixel} spp", file=sys.stderr)
+    img, depth = sched.run()
+
+    if args.out:
+        save_png(args.out, img)
+        if not args.quiet:
+            print(f"wrote {args.out}", file=sys.stderr)
+    if args.out_exr:
+        linear = r._accum.cpu().numpy().reshape(
+            args.height, args.width, 3) / max(r.frame - 1, 1)
+        write_exr(args.out_exr, linear[::-1])
+        if not args.quiet:
+            print(f"wrote {args.out_exr}", file=sys.stderr)
+    if args.depth_out:
+        save_depth_png(args.depth_out, depth)
+        if not args.quiet:
+            print(f"wrote {args.depth_out}", file=sys.stderr)
+    if not (args.out or args.out_exr or args.depth_out):
+        print(f"rendered {r.samples_per_pixel} spp "
+              f"(mean luminance {float(np.mean(img)):.4f}); "
+              "no output path given (--out/--out-exr)", file=sys.stderr)
+    return 0
+
+
+def cmd_view(args) -> int:
+    del args
+    raise NotImplementedError(f"view is not ported yet: {VIEW_ITEM}")
+
+
+def cmd_bench(args) -> int:
+    del args
+    raise NotImplementedError(f"bench is not ported yet: {BENCH_ITEM}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="vrenderer_pathtracer_tpu_torch",
+        description="PyTorch + CUDA port of the differentiable path tracer",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    pr = sub.add_parser("render", help="render a scene to PNG/EXR")
+    _add_render_args(pr)
+    pr.set_defaults(fn=cmd_render)
+    # view takes the JAX CLI's flags unread: it refuses whatever it is given.
+    sub.add_parser("view", help="live terminal viewer (not ported yet)"
+                   ).set_defaults(fn=cmd_view)
+    pb = sub.add_parser("bench", help="the headline benchmark (not ported yet)")
+    pb.set_defaults(fn=cmd_bench)
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.fn is not cmd_view:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

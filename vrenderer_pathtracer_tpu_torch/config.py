@@ -5,14 +5,13 @@ kept as a separate copy because importing the JAX package imports jax.  In
 the port the settings select code paths at call time (PyTorch runs
 eagerly); nothing is recompiled when they change.
 
-Fields that belong to parts of the JAX package not ported yet (attribute
-capture) are kept so a settings object can be handed from one package to
-the other; the port raises ``NotImplementedError`` where one of them asks
-for a path it does not have.  ``compact_capacity_frac`` and
-``compact_mode`` size and switch the JAX package's static-capacity compact
-chain; the port compacts with the exact count and accepts them with no
-effect (``render/integrator.py::radiance``).  ``bounce_block_rows`` and
-``pre_tiled`` are TPU kernel block options with no effect here.
+``captured_attrs`` selects the forward-only win-time attribute capture
+of the mesh search (K3c, ``accel/traverse.py::mesh_hit``).
+``compact_capacity_frac`` and ``compact_mode`` size and switch the JAX
+package's static-capacity compact chain; the port compacts with the exact
+count and accepts them with no effect (``render/integrator.py::radiance``).
+``bounce_block_rows`` and ``pre_tiled`` are TPU kernel block options with
+no effect here.
 """
 
 from __future__ import annotations
@@ -45,6 +44,8 @@ class RenderSettings:
     * ``compact_waves``    — compact bounce waves; always on for a paged mesh
     * ``sort_rays``        — coherence-sort rays before each mesh search
     * ``remat_bounces``    — recompute each bounce in the backward pass
+    * ``captured_attrs``   — shade mesh hits from attributes the search
+      captures at win time (K3c; forward only; no compact waves)
     * ``use_fxaa``         — FXAA on the displayed image
     """
 

@@ -43,6 +43,21 @@
 // K4 (mesh.cu) calls at every bounce; the helpers of both kernels live there
 // too.
 //
+// K3c is K3 with win-time attribute capture: ::_kernel_wide with capture=
+// (pallas_traverse.py CAPTURE_WIDTHS, on_win), which writes the winning
+// triangle's face normal, uv, tangent and smooth normal beside (slot, t) for
+// the wavefront's forward pass (settings.captured_attrs).  The Pallas kernel
+// interpolates at every win, because the leaf block is in VMEM only then.
+// Here one thread owns one ray: the walk is K3's traverse_wide, which keeps
+// the winner's barycentrics, and once per ray after the walk the thread
+// reads the winner's corner rows by slot through the read-only cache
+// (tri_e1/tri_e2 12 bytes each, tri_uv 24, tri_t and tri_n 36 each: at most
+// 120 bytes a hit), interpolates w*c0 + u*c1 + v*c2, normalises the three
+// directions by 1/sqrt(max(|x|^2, 1e-40)) and writes the requested fields
+// (11 floats a ray at most; zeros on a miss).  The field mask is a template
+// parameter, so K3 itself (mask 0) holds none of this code.  Its plain
+// version is accel/traverse.py::capture_reference.
+//
 // Numerics: built without --use_fast_math (IEEE division).  The slab test is
 // a subtract and a multiply per plane, which nvcc cannot contract.  The
 // triangle test's determinant, u, v and t are sums of products, which nvcc
@@ -88,6 +103,115 @@ traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ re
   slot_out[i] = h.slot;
   t_out[i] = h.t;
   add_work(stats, w);
+}
+
+// The winner's mesh attributes K3c reads by slot, and its outputs (each
+// [n, 3], uv [n, 2]; null where not requested).
+struct Attrs {
+  const float *e1, *e2, *uv, *tan, *nrm;  // [T,3], [T,3], [T,3,2], [T,3,3], [T,3,3]
+};
+struct Captured {
+  float *normal, *uv, *tangent, *smooth;
+};
+
+constexpr unsigned kCapNormal = 1, kCapUv = 2, kCapTangent = 4, kCapSmooth = 8;
+// Planted faults of K3c's check (chip_smoke.py), template arguments so that
+// the kernel's own instances (kFault 0) hold none of them.
+constexpr int kFaultSwapUv = 1, kFaultRawTangent = 2, kFaultStaleAttrs = 3;
+
+__device__ __forceinline__ void store_unit(float* out, float x, float y,
+                                           float z, bool normalise = true) {
+  const float inv = normalise ? 1.0f / sqrtf(fmaxf(x * x + y * y + z * z, 1e-40f)) : 1.f;
+  out[0] = x * inv;
+  out[1] = y * inv;
+  out[2] = z * inv;
+}
+
+// w*c0 + u*c1 + v*c2 of the three corner rows of `rows` (3 components each).
+__device__ __forceinline__ void bary3(const float* rows, float w, float u,
+                                      float v, float out[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    out[k] = w * __ldg(rows + k) + u * __ldg(rows + 3 + k) + v * __ldg(rows + 6 + k);
+  }
+}
+
+// K3c: K3's walk, then the winner's attributes once per ray.
+template <unsigned kCap, int kFault>
+__global__ void __launch_bounds__(kThreads)
+traverse_capture_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
+                        const int* __restrict__ axes, const float* __restrict__ pack,
+                        const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+                        const float* __restrict__ t_max, int n,
+                        int* __restrict__ slot_out, float* __restrict__ t_out,
+                        unsigned long long* __restrict__ stats, Attrs a,
+                        Captured c) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float tmax = __ldg(t_max + i);
+  Work w;
+  Hit h;
+  if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
+    h = traverse_wide<kFault == kFaultStaleAttrs>(boxes, recs, axes, pack,
+                                                  load_ray(ray_o, ray_d, i), tmax, w);
+  } else {
+    h.slot = h.attr = -1;
+    h.t = tmax;
+  }
+  slot_out[i] = h.slot;
+  t_out[i] = h.t;
+  add_work(stats, w);
+  const bool hit = h.slot >= 0;
+  const size_t s = hit ? static_cast<size_t>(h.attr) : 0;
+  float u = hit ? h.u : 0.f, v = hit ? h.v : 0.f;
+  if (kFault == kFaultSwapUv) {
+    const float x = u;
+    u = v;
+    v = x;
+  }
+  const float bw = 1.f - u - v;
+  if (kCap & kCapNormal) {
+    float* out = c.normal + 3 * static_cast<size_t>(i);
+    if (hit) {  // e1 x e2, the orientation of shade_mesh_hit's face normal
+      const float* p = a.e1 + 3 * s;
+      const float* q = a.e2 + 3 * s;
+      const float ax = __ldg(p), ay = __ldg(p + 1), az = __ldg(p + 2);
+      const float bx = __ldg(q), by = __ldg(q + 1), bz = __ldg(q + 2);
+      store_unit(out, ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx);
+    } else {
+      out[0] = out[1] = out[2] = 0.f;
+    }
+  }
+  if (kCap & kCapUv) {
+    float* out = c.uv + 2 * static_cast<size_t>(i);
+    if (hit) {  // corners (u0, v0, u1, v1, u2, v2)
+      const float* p = a.uv + 6 * s;
+      out[0] = bw * __ldg(p) + u * __ldg(p + 2) + v * __ldg(p + 4);
+      out[1] = bw * __ldg(p + 1) + u * __ldg(p + 3) + v * __ldg(p + 5);
+    } else {
+      out[0] = out[1] = 0.f;
+    }
+  }
+  if (kCap & kCapTangent) {
+    float* out = c.tangent + 3 * static_cast<size_t>(i);
+    if (hit) {
+      float x[3];
+      bary3(a.tan + 9 * s, bw, u, v, x);
+      store_unit(out, x[0], x[1], x[2], kFault != kFaultRawTangent);
+    } else {
+      out[0] = out[1] = out[2] = 0.f;
+    }
+  }
+  if (kCap & kCapSmooth) {
+    float* out = c.smooth + 3 * static_cast<size_t>(i);
+    if (hit) {
+      float x[3];
+      bary3(a.nrm + 9 * s, bw, u, v, x);
+      store_unit(out, x[0], x[1], x[2]);
+    } else {
+      out[0] = out[1] = out[2] = 0.f;
+    }
+  }
 }
 
 // K3b: the binary SBVH.  nodes_f [M, 12] (lo0, hi0, lo1, hi1), nodes_i
@@ -185,6 +309,62 @@ extern "C" int vpt_traverse_wide(const void* boxes, const void* recs,
         static_cast<const float*>(t_max), n, static_cast<int*>(slot),
         static_cast<float*>(t), static_cast<unsigned long long*>(stats));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K3c on `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue
+// (1) for a field mask without the normal.  As vpt_traverse_wide, plus the
+// winner's attributes by slot: e1/e2 [T,3], uv [T,3,2], tangents and normals
+// [T,3,3] f32; `mask` (1 normal, 2 uv, 4 tangent, 8 smooth normal) picks the
+// outputs, normal/tangent/smooth [n,3] and uv [n,2] f32 (null where not
+// picked); `fault` is 0, or a planted fault of the check, with every field
+// picked: 1 u and v swapped, 2 the tangent unnormalised, 3 the first
+// winner's attributes kept.
+extern "C" int vpt_traverse_capture(const void* boxes, const void* recs,
+                                    const void* axes, const void* pack,
+                                    const void* ray_o, const void* ray_d,
+                                    const void* t_max, int n, void* slot, void* t,
+                                    void* stats, const void* e1, const void* e2,
+                                    const void* uv, const void* tan, const void* nrm,
+                                    int mask, void* normal_out, void* uv_out,
+                                    void* tangent_out, void* smooth_out, int fault,
+                                    void* stream) {
+  const Attrs a{static_cast<const float*>(e1), static_cast<const float*>(e2),
+                static_cast<const float*>(uv), static_cast<const float*>(tan),
+                static_cast<const float*>(nrm)};
+  const Captured c{static_cast<float*>(normal_out), static_cast<float*>(uv_out),
+                   static_cast<float*>(tangent_out), static_cast<float*>(smooth_out)};
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+#define VPT_K3C(MASK, FAULT)                                                          \
+  traverse_capture_kernel<MASK, FAULT><<<blocks_for(n), kThreads, 0, s>>>(             \
+      static_cast<const float*>(boxes), static_cast<const int*>(recs),                \
+      static_cast<const int*>(axes), static_cast<const float*>(pack),                 \
+      static_cast<const float*>(ray_o), static_cast<const float*>(ray_d),             \
+      static_cast<const float*>(t_max), n, static_cast<int*>(slot),                   \
+      static_cast<float*>(t), static_cast<unsigned long long*>(stats), a, c)
+  if (fault != 0) {  // the faults capture every field
+    if (mask != 15) return static_cast<int>(cudaErrorInvalidValue);
+    switch (fault) {
+      case kFaultSwapUv: VPT_K3C(15, kFaultSwapUv); break;
+      case kFaultRawTangent: VPT_K3C(15, kFaultRawTangent); break;
+      case kFaultStaleAttrs: VPT_K3C(15, kFaultStaleAttrs); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (mask) {  // the normal is always captured (accel/traverse.py capture_fields)
+    case 1: VPT_K3C(1, 0); break;
+    case 3: VPT_K3C(3, 0); break;
+    case 5: VPT_K3C(5, 0); break;
+    case 7: VPT_K3C(7, 0); break;
+    case 9: VPT_K3C(9, 0); break;
+    case 11: VPT_K3C(11, 0); break;
+    case 13: VPT_K3C(13, 0); break;
+    case 15: VPT_K3C(15, 0); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VPT_K3C
   return static_cast<int>(cudaGetLastError());
 }
 

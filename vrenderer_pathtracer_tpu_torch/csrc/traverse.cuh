@@ -1,8 +1,9 @@
-// Device code of the BVH searches, shared by K3 and K3b (traverse.cu) and K4
-// (mesh.cu): the ray with its guarded reciprocal, the slab test, the
-// Möller–Trumbore triangle test, the work counters, and the whole per-ray
-// closest-hit search over the 8-wide tree (traverse_wide), which K3 runs
-// for one ray per thread and K4 runs at every bounce of its path loop.
+// Device code of the BVH searches, shared by K3, K3c and K3b (traverse.cu),
+// K4 (mesh.cu) and K5 (paged.cu): the ray with its guarded reciprocal, the
+// slab test, the Möller–Trumbore triangle test, the work counters, and the
+// whole per-ray closest-hit search over the 8-wide tree (traverse_wide),
+// which K3 and K3c run for one ray per thread and K4 runs at every bounce of
+// its path loop.
 //
 // Numerics: see traverse.cu (no --use_fast_math; the triangle test is left
 // to nvcc's FMA contraction).
@@ -29,9 +30,10 @@ struct Work {
 };
 
 // The closest hit of one search: slot -1 and t = t_max on a miss; (u, v)
-// are the winner's barycentrics along e1 and e2.
+// are the barycentrics along e1 and e2 of triangle `attr`, the winner
+// (another triangle only under K3c's planted stale-attribute fault).
 struct Hit {
-  int slot;
+  int slot, attr;
   float t, u, v;
 };
 
@@ -110,7 +112,9 @@ __device__ __forceinline__ void push(int* stack, int& sp, int cap, int node) {
 // far through one copy of the triangle test; inner children are pushed far
 // to near along the node's sort axis, so the nearest pops first.  The
 // closest hit is updated on strict t < best, so the first triangle in leaf
-// order wins a tie.
+// order wins a tie.  kStaleAttrs plants a fault for K3c's check
+// (chip_smoke.py): (u, v, attr) keep the first winner's after a closer hit.
+template <bool kStaleAttrs = false>
 __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
                                              const int* __restrict__ recs,
                                              const int* __restrict__ axes,
@@ -118,7 +122,7 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
                                              const Ray& r, float t_max, Work& w,
                                              int root = 0) {
   Hit h;
-  h.slot = -1;
+  h.slot = h.attr = -1;
   h.t = t_max;
   h.u = h.v = 0.f;
   if (!(t_max > 0.f)) return h;
@@ -164,9 +168,12 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
         float t, u, v;
         if (moller_trumbore(r, v0, e1, e2, t, u, v) && t < h.t) {
           h.t = t;
-          h.u = u;
-          h.v = v;
           h.slot = __float2int_rn(p2.y);
+          if (!kStaleAttrs || h.attr < 0) {
+            h.u = u;
+            h.v = v;
+            h.attr = h.slot;
+          }
         }
       }
     }

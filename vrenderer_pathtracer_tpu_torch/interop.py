@@ -37,7 +37,8 @@ def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
     mesh is a TPU layout and raises.  The 8-wide tree is held to K3's stack
     bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  The
     TPU kernel's win-time capture packs (``tri_aux_pack``,
-    ``tri_nrm_pack``) are not carried: K4 reads tangents and uvs by slot.
+    ``tri_nrm_pack``) are not carried: K3c and K4 read tangents, normals
+    and uvs by slot.
 
     A paged JAX mesh (``paged`` a ``PagedNodes`` or its leaves as a
     mapping) carries its flat slot arrays, ``tri_count`` and page ``bbox``

@@ -1,12 +1,10 @@
-"""ctypes bindings for the port's host library (SBVH builder + mesh loaders).
+"""ctypes bindings for the port's host library (SBVH builder + loaders).
 
 The same C ABI and the same Python surface as the JAX package's ``native``
-module, for the parts the mesh and MERL paths need: OBJ and PLY import, the
-SBVH build and the MERL-100 binary reader.  The library is built from
-``native/csrc`` at first use (``native/build.py``).  EXR and FBX loading and
-the dense paged builder are not bound: HDRIs come in as arrays, FBX belongs
-to a later slice (ROADMAP Queue 1 item 12), and the dense page layout is a
-TPU VMEM artifact (the port pages with ``accel/paged.py``).
+module: OBJ, PLY and FBX import, the SBVH build, the MERL-100 binary reader,
+and EXR read and write.  The library is built from ``native/csrc`` at first
+use (``native/build.py``).  The dense paged builder is not bound: the dense
+page layout is a TPU VMEM artifact (the port pages with ``accel/paged.py``).
 """
 
 from __future__ import annotations
@@ -37,11 +35,17 @@ def _load() -> ctypes.CDLL:
         ctypes.POINTER(_c_fp), ctypes.POINTER(_c_fp), ctypes.POINTER(_c_fp),
         ctypes.POINTER(_c_fp), _c_ip, ctypes.POINTER(_c_ip), _c_ip,
     ]
-    for fn in (lib.vt_load_obj, lib.vt_load_ply):
+    for fn in (lib.vt_load_obj, lib.vt_load_ply, lib.vt_load_fbx):
         fn.restype = ctypes.c_int
         fn.argtypes = loader_args
     lib.vt_load_merl.restype = ctypes.c_int
     lib.vt_load_merl.argtypes = [ctypes.c_char_p, ctypes.POINTER(_c_fp), _c_ip]
+    lib.vt_load_exr.restype = ctypes.c_int
+    lib.vt_load_exr.argtypes = [ctypes.c_char_p, ctypes.POINTER(_c_fp), _c_ip,
+                                _c_ip]
+    lib.vt_write_exr_c.restype = ctypes.c_int
+    lib.vt_write_exr_c.argtypes = [ctypes.c_char_p, _c_fp, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int]
     lib.vt_free.restype = None
     lib.vt_free.argtypes = [ctypes.c_void_p]
     return lib
@@ -58,12 +62,30 @@ _PLY_ERRORS = {
     3: "unsupported PLY flavour (need ascii or binary_little_endian 1.0 "
        "with x/y/z vertex properties)",
 }
+_FBX_ERRORS = {
+    1: "cannot open file",
+    2: "corrupt container or no mesh geometry",
+    3: "not an FBX file (foreign format: convert to FBX, OBJ or PLY)",
+}
 _MERL_ERRORS = {
     1: "cannot open file",
     2: "truncated header (expected 3 int32 dims)",
     3: "wrong dimensions (MERL tables must be 90x90x180)",
     4: "truncated data (expected 3*90*90*180 doubles)",
 }
+_EXR_ERRORS = {
+    1: "cannot open file",
+    2: "not an EXR (bad magic/version)",
+    3: "bad header (missing/invalid channels or dataWindow)",
+    4: "unsupported feature (deep data, compression beyond "
+       "NONE/RLE/ZIPS/ZIP/PIZ/PXR24/B44/B44A/DWAA/DWAB, UINT channels, "
+       "or no R/G/B/Y channels; multipart files read their first "
+       "regular-image part)",
+    5: "truncated or corrupt pixel data",
+}
+# write_exr's compressions -> the C codes of vt_write_exr_c (csrc/exr.cc).
+EXR_COMPRESSIONS = {"none": 0, "rle": 1, "zips": 2, "zip": 3, "piz": 4,
+                    "pxr24": 5, "b44": 6, "dwaa": 8, "dwab": 9}
 
 
 def _take(ptr, shape, dtype, lib):
@@ -131,18 +153,52 @@ def load_ply(path: str) -> HostMesh:
     return _load_with("vt_load_ply", _PLY_ERRORS, path)
 
 
+def load_fbx(path: str) -> HostMesh:
+    """FBX import, binary or ascii (csrc/fbx.cc): the last Mesh geometry,
+    layer-0 normals and UVs, the post-processing contract of
+    :func:`load_obj`."""
+    return _load_with("vt_load_fbx", _FBX_ERRORS, path)
+
+
 def load_mesh_file(path: str) -> HostMesh:
-    """Extension-dispatching mesh import (.obj, .ply)."""
+    """Extension-dispatching mesh import (.obj, .ply, .fbx)."""
     p = str(path).lower()
     if p.endswith(".obj"):
         return load_obj(path)
     if p.endswith(".ply"):
         return load_ply(path)
     if p.endswith(".fbx"):
-        raise NotImplementedError(
-            f"load_mesh_file({path}): FBX import is not ported; convert to "
-            "OBJ or PLY")
+        return load_fbx(path)
     raise IOError(f"load_mesh_file({path}): unknown mesh format")
+
+
+def load_exr(path: str) -> np.ndarray:
+    """An EXR (scanline or tiled, half or float, every compression of
+    :data:`EXR_COMPRESSIONS` and B44A) as [H,W,3] float32, top row first."""
+    lib = _load()
+    pd = _c_fp()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    rc = lib.vt_load_exr(str(path).encode(), ctypes.byref(pd), ctypes.byref(w),
+                         ctypes.byref(h))
+    if rc != 0:
+        raise IOError(f"load_exr({path}): "
+                      f"{_EXR_ERRORS.get(rc, f'unknown error {rc}')} (code {rc})")
+    return _take(pd, (h.value, w.value, 3), np.float32, lib)
+
+
+def write_exr(path: str, rgb: np.ndarray, compression: str = "none") -> None:
+    """Write [H,W,3] float32 as a half-float EXR, ``compression`` one of
+    :data:`EXR_COMPRESSIONS` (b44, dwaa and dwab are lossy)."""
+    rgb = np.ascontiguousarray(rgb, np.float32)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected [H,W,3], got {rgb.shape}")
+    if compression not in EXR_COMPRESSIONS:
+        raise ValueError(f"unsupported compression {compression!r}")
+    rc = _load().vt_write_exr_c(str(path).encode(), rgb.ctypes.data_as(_c_fp),
+                                rgb.shape[1], rgb.shape[0],
+                                EXR_COMPRESSIONS[compression])
+    if rc != 0:
+        raise IOError(f"write_exr({path}) failed with code {rc}")
 
 
 def load_merl(path: str) -> np.ndarray:

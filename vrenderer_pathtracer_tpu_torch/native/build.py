@@ -1,12 +1,16 @@
-"""Build the port's copy of the host library (SBVH builder + mesh loaders).
+"""Build the port's copy of the host library (SBVH builder, mesh, MERL, EXR
+and FBX I/O).
 
-``csrc/sbvh.cc``, ``csrc/loaders.cc`` and ``csrc/math3.h`` are copies of the
-JAX package's ``native/csrc`` files, with the same C ABI; the port keeps its
-own copy because it imports nothing of the JAX package.  They are compiled
-with ``g++`` at first use into ``vrenderer_pathtracer_tpu_torch/_build/``
-(git-ignored), under a file name keyed by a hash of the sources and flags,
-so an edited source builds anew.  The flags are the JAX package's, so the
-same machine builds a bit-identical tree.
+``csrc/sbvh.cc``, ``loaders.cc``, ``exr.cc``, ``piz.cc``, ``dwa.cc``,
+``fbx.cc`` and ``math3.h`` are byte-identical copies of the JAX package's
+``native/csrc`` files, with the same C ABI; the port keeps its own copy
+because it imports nothing of the JAX package (``dense.cc``, the TPU dense
+page builder, is not copied).  They are compiled with ``g++`` at first use
+into ``vrenderer_pathtracer_tpu_torch/_build/`` (git-ignored), under a file
+name keyed by a hash of the sources and flags, so an edited source builds
+anew, and linked against zlib (EXR ZIP/PXR24/DWA and FBX deflate).  The
+flags are the JAX package's, so the same machine builds a bit-identical
+tree and the same EXR bytes.
 
 Usage:  python -m vrenderer_pathtracer_tpu_torch.native.build
 """
@@ -24,16 +28,17 @@ HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD_DIR = HERE.parent / "_build"
 
-SOURCES = ["sbvh.cc", "loaders.cc"]
+SOURCES = ["sbvh.cc", "loaders.cc", "fbx.cc", "exr.cc", "piz.cc", "dwa.cc"]
 CXXFLAGS = [
     "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
     "-Wall", "-Wextra", "-fno-exceptions",
 ]
+LIBS = ["-lz"]
 
 
 def library_path() -> pathlib.Path:
     """Where the library built from the current sources lives."""
-    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
+    h = hashlib.sha256(" ".join(CXXFLAGS + LIBS).encode())
     for p in [*(CSRC / s for s in SOURCES), *sorted(CSRC.glob("*.h"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -49,10 +54,11 @@ def build(verbose: bool = False) -> pathlib.Path:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found: the port's host library "
-                           "(SBVH builder, mesh loaders) needs a C++ compiler")
+                           "(SBVH builder, loaders) needs a C++ compiler")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXXFLAGS, *(str(CSRC / s) for s in SOURCES), "-o", str(tmp)]
+    cmd = [cxx, *CXXFLAGS, *(str(CSRC / s) for s in SOURCES), "-o", str(tmp),
+           *LIBS]
     if verbose:
         print(" ".join(cmd))
     proc = subprocess.run(cmd, capture_output=True, text=True)

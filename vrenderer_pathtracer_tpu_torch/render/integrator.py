@@ -24,8 +24,10 @@ Estimator (the JAX package's, constant for constant):
   the slot-2 draws).
 
 * Compact bounce waves (:func:`radiance`) and ``remat_bounces`` (each
-  bounce checkpointed, ``torch.utils.checkpoint``).  Attribute capture is
-  not ported and raises ``NotImplementedError``.
+  bounce checkpointed, ``torch.utils.checkpoint``).  Win-time attribute
+  capture (``captured_attrs``, ``accel/traverse.py::mesh_hit``) shades
+  from the search's own attributes, forward only, at full width: compact
+  waves are off under it, as in the JAX integrator.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from vrenderer_pathtracer_tpu_torch.ops.envmap import (
     sample_env_bilinear, sample_env_nearest)
 from vrenderer_pathtracer_tpu_torch.ops.intersect import INF, intersect_spheres
 from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
-from vrenderer_pathtracer_tpu_torch.scene.scene import Scene, check_scope
+from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import (
     BRDF, DIFF, EXAMPLE_SPHERE_POS, EXAMPLE_SPHERE_RADIUS)
 
@@ -305,7 +307,6 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
     """
     from vrenderer_pathtracer_tpu_torch.ops.brdf_sampling import build_merl_sampler
 
-    check_scope(settings)
     n_rays = ray_o.shape[0]
     brdf_table = scene.brdf if settings.has_brdf else None
     # Lobe importance sampler (opt-in): 90 numbers from the detached table,
@@ -330,7 +331,8 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
     env_w = torch.zeros((n_rays, 3), **f32)
     env_dir = ray_d
     compact = (settings.compact_waves and settings.has_mesh
-               and scene.mesh is not None and not settings.use_example_sphere)
+               and scene.mesh is not None and not settings.use_example_sphere
+               and not settings.captured_attrs)
 
     if not compact:
         carry = (ray_o, ray_d, mask, accum, depth, alive, killed, env_w,

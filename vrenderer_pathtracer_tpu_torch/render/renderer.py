@@ -165,10 +165,12 @@ class Renderer:
         return (self.frame - 1) * self.settings.samples_per_pass
 
     def load_hdr(self, hdr):
-        """Set the lat-long environment map: an [H,W,3] float array."""
+        """Set the lat-long environment map: an [H,W,3] float array or the
+        path of an EXR (reference ``loadHDR``)."""
         if isinstance(hdr, (str, bytes)) or hasattr(hdr, "__fspath__"):
-            _not_ported("EXR import (load_hdr of a path; pass an array)",
-                        "ROADMAP Queue 1 item 12")
+            from vrenderer_pathtracer_tpu_torch.native import load_exr
+
+            hdr = load_exr(hdr)
         self._mutate(hdr=self._asset(hdr))
 
     def load_texture(self, image, gamma: float = 2.2,

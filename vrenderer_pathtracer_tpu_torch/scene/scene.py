@@ -18,8 +18,6 @@ from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet, build_sphere
 
 TRAIN_HDR_ITEM = ("ROADMAP Queue 1 item 15 (TrainParams.hdr: a trainable "
                   "environment map through the wavefront integrator)")
-CAPTURE_ITEM = ("ROADMAP Queue 2, K3 options (win-time attribute capture, "
-                "decided from an H100 measurement)")
 
 _MAPS = ("hdr", "diffuse_map", "normal_map", "specular_map")
 
@@ -176,13 +174,6 @@ def _resolve(request: str, want: str, what: str, device, also=()) -> str:
     return want if request == "auto" else request
 
 
-def check_scope(settings: RenderSettings) -> None:
-    """Raise ``NotImplementedError`` for settings the port does not cover
-    yet, naming the ROADMAP item that does."""
-    if settings.captured_attrs:
-        raise NotImplementedError(f"setting captured_attrs: {CAPTURE_ITEM}")
-
-
 def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings:
     """Derive the ``has_*`` flags from the scene's assets and resolve the
     radiance and traversal backends from the scene's device.
@@ -202,7 +193,6 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
     """
     from vrenderer_pathtracer_tpu_torch.render import cuda_mesh, cuda_radiance
 
-    check_scope(settings)
     resolved = settings.replace(
         has_diffuse_map=scene.diffuse_map is not None,
         has_normal_map=scene.normal_map is not None,
@@ -229,5 +219,8 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
                                  ("wavefront",) if on_cuda else ()),
         traversal=_resolve(settings.traversal, traversal, "traversal",
                            scene.device),
-        compact_waves=settings.compact_waves or paged,
+        # The captured shading runs at full width, as in the JAX
+        # integrator, which never compacts under captured_attrs.
+        compact_waves=(settings.compact_waves or paged)
+        and not settings.captured_attrs,
     )
