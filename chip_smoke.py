@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and K6 (``csrc/probe.cu``) of
    ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
    started together; print the seconds and ptxas' report (registers,
-   spills and stack of every kernel instance).
+   spills and stack frame of every kernel instance: K4's direct and
+   records modes and its direct-fault instances among them).
 3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
@@ -77,26 +78,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the sphere and the diffuse map, with and without its five walls
    (256^2); 2 spp, 4 bounces, camera at z = 40 outside the Cornell box.
 19. K4 against ``records_reference`` on the card on every K4 scene, record
-   field by field and on the composed images, under ``k4_contract``; two
-   launches bit-identical.
+   field by field and on the composed images, under ``k4_contract``; K4's
+   direct mode (the tables fetched in the kernel, depth and rgb written)
+   against the plain version's composed pass and against the records
+   mode's, under ``k4_contract``'s image and depth limits; two launches of
+   each mode bit-identical.
 20. Planted K4 faults (a dropped MIS factor, a MERL index off by one, the
-   Cornell kill-zeroing skipped, uv off by one texel), each of which must
-   break the contract.
+   Cornell kill-zeroing skipped, uv off by one texel; in direct mode the
+   HDRI one texel off in u, the texture's v flipped, the MERL channel
+   scale dropped), each of which must break the contract.
 21. K4 render paths: 1 warm-up and 10 timed ``Renderer`` passes on each K4
-   scene but the wall-less one; K4's count rises by one a pass, and the plain integrator,
+   scene but the wall-less one; K4's count rises by one a pass in direct
+   mode, ``compose`` is never called, and the plain integrator,
    ``records_reference``, K1, K2, K3 and K3b never run; the image is finite
    and lit.  Then the mesh-megakernel scene with
    ``radiance_kernel="wavefront"`` (K3 as its search) as the comparison pass.
 22. ``deferred_opt_step`` with Adam on config 4's HDRI and MERL table for 12
-   steps at 1024x768: K4 runs each step and the loss falls; the gradients
-   through K4 + ``compose`` against the wavefront's autograd on one frame.
+   steps at 1024x768: K4 runs each step in records mode, ``compose`` once a
+   step, and the loss falls; the gradients through K4 + ``compose`` against
+   the wavefront's autograd on one frame.
 23. A 600-sphere Cornell scene (more than K1 stages in shared memory)
    through K1 against its plain version at 256^2.
 24. Times from CUDA events on the mesh-megakernel scene and config 4: K4
-   alone, the pass (packing + K4 + ``compose``), ``compose`` alone, the
-   plain version and the wavefront pass.
-25. Where the time goes: a ``torch.profiler`` trace of 20 K4 passes.
-26. K4's bound from the work it counts (``k4_bound``).
+   alone in each mode, the pass in each mode (direct: packing + K4;
+   records: packing + K4 + ``compose``), ``compose`` alone, the plain
+   version and the wavefront pass; K4 alone in each mode on the other
+   scenes of phase 21.
+25. Where the time goes: a ``torch.profiler`` trace of 20 K4 passes of
+   the Renderer (direct mode).
+26. K4's bound from the work it counts in each mode (``k4_bound``).
 27. Config 5 (``config5_assets``: ``examples/config5.py::synth_assets``'s
    499,000-triangle UV sphere, 128x256 gradient sky as an array, Lambertian
    MERL ``.binary``): the set-up seconds (page SBVHs, collapse and leaf
@@ -839,6 +849,17 @@ K4_GRAD_RTOL, K4_GRAD_FRAC = 0.05, 0.02
 K4_OPS = {"hit_fp32": 320, "hit_sfu": 19, "hit_int32": 155,
           "brdf_fp32": 190, "brdf_sfu": 8,
           "mis_fp32": 180, "mis_sfu": 10, "mis_int32": 100}
+# The direct mode's fetches (csrc/mesh.cu env_fetch, tex_fetch,
+# merl_factor), counted the same way: an HDRI fetch is atan2f and acosf
+# (~40 FP32, 3 SFU), two IEEE divisions (8 FP32, 2 SFU), the texel address
+# (~10 INT32, ~30 with the bilinear wrap) and the blend (6 FP32 a channel
+# nearest, 24 bilinear) times the path weight; a texture fetch the
+# address and the blend; a MERL factor 9 FP32 and 3 INT32 for its index.
+K4_FETCH_OPS = {"env_fp32": 70, "env_sfu": 5, "env_int32": 10,
+                "env_bilinear_fp32": 125, "env_bilinear_int32": 30,
+                "tex_fp32": 12, "tex_int32": 10,
+                "tex_bilinear_fp32": 80, "tex_bilinear_int32": 30,
+                "merl_fp32": 9, "merl_int32": 3}
 
 
 def glossy_merl(width, tint, amp=3000.0, floor=2.0):
@@ -941,12 +962,30 @@ def k4_readings(r, got, want):
     return out
 
 
+def direct_readings(got, want):
+    """How a pass ``got`` of K4's direct mode (``[4, N]``: depth, rgb)
+    agrees with the composed pass ``want`` (``(rgb [N,3], depth [N])``) on
+    the image and the depth, as ``k4_readings`` reads the composed images
+    (no records: ``k4_contract`` holds it to the image and depth limits)."""
+    rgb_g, dep_g = got[1:].T, got[0]
+    rgb_w, dep_w = want
+    diff = (rgb_g - rgb_w).abs().amax(dim=-1)
+    ok = diff[diff <= 1e-3]
+    return {"records": {},
+            "pixel_outliers": (diff > 1e-3).float().mean().item(),
+            "inlier_mean_err": ok.mean().item() if ok.numel() else 0.0,
+            "max_abs_err": diff.max().item(),
+            "depth_outliers": ((dep_g - dep_w).abs() > 1e-3).float().mean().item(),
+            "finite": bool(torch.isfinite(rgb_g).all() and torch.isfinite(dep_g).all())}
+
+
 def print_readings(name, a):
     rec = ", ".join(f"{k} {v[0]:.4%} (max {v[1]:.3g})"
                     for k, v in a["records"].items())
     print(f"  {name}: image outliers {a['pixel_outliers']:.4%} (inlier mean "
           f"{a['inlier_mean_err']:.3g}, max {a['max_abs_err']:.4g}), depth "
-          f"outliers {a['depth_outliers']:.4%}; records off: {rec}")
+          f"outliers {a['depth_outliers']:.4%}"
+          + (f"; records off: {rec}" if rec else ""))
 
 
 def k4_contract(a, cornell):
@@ -959,13 +998,17 @@ def k4_contract(a, cornell):
             and all(frac <= limit for frac, _ in a["records"].values()))
 
 
-def k4_bound(r, stats, n_slots):
+def k4_bound(r, stats, n_slots, direct=False):
     """(bound_ms, bound_by, ops, bytes) of one K4 launch on ``r``'s scene
     from the work the kernel counted (``stats``, cuda_mesh.STATS order):
-    the larger of the bytes over the memory rate (records written once;
-    the mesh, its per-slot attribute arrays and the small tables read once)
-    and, per operation type, the operations over the card's peak rate."""
-    visits, boxes, tris, traced, hits, brdf, mis = stats
+    the larger of the bytes over the memory rate and, per operation type,
+    the operations over the card's peak rate.  Bytes: the mesh, its
+    per-slot attribute arrays and the small tables read once, and the
+    records written once (``n_slots`` floats a pixel); in ``direct`` mode
+    16 bytes a pixel written (depth and rgb) and the HDRI, diffuse texture
+    and MERL table the scene fetches read once, with the fetches' own
+    operations (K4_FETCH_OPS)."""
+    visits, boxes, tris, traced, hits, brdf, mis, env, tex = stats
     s, scene = r.settings, r.scene
     spheres = scene.spheres.count + (1 if s.use_example_sphere else 0)
     ops = {
@@ -980,11 +1023,28 @@ def k4_bound(r, stats, n_slots):
                   + visits * TRAV_OPS["int32_per_visit"]
                   + boxes * TRAV_OPS["int32_per_box"]),
     }
-    n_bytes = 4 * n_slots * s.n_pixels + 14 * 4 * scene.spheres.count
+    n_bytes = 14 * 4 * scene.spheres.count
     if s.has_mesh and not s.use_example_sphere:
         mesh = scene.mesh
         n_bytes += mesh_read_bytes(mesh, True) + sum(
             getattr(mesh, f).numel() * 4 for f in ("tri_e1", "tri_e2", "tri_uv", "tri_t"))
+    if direct:
+        from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+        bil = "_bilinear" if s.texture_filter == "bilinear" else ""
+        f = K4_FETCH_OPS
+        ops["fp32"] += (env * f[f"env{bil}_fp32"] + tex * f[f"tex{bil}_fp32"]
+                        + brdf * f["merl_fp32"])
+        ops["sfu"] += env * f["env_sfu"]
+        ops["int32"] += (env * f[f"env{bil}_int32"] + tex * f[f"tex{bil}_int32"]
+                         + brdf * f["merl_int32"])
+        defer = k4.Defer(s)
+        n_bytes += 16 * s.n_pixels + sum(
+            t.numel() * 4 for t, on in ((scene.hdr, defer.env),
+                                        (scene.diffuse_map, defer.tex),
+                                        (scene.brdf, defer.merl)) if on)
+    else:
+        n_bytes += 4 * n_slots * s.n_pixels
     t_ops = max(ops[k] / RATES[k] for k in ops)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
@@ -1060,8 +1120,23 @@ def k4_phases(dev, card, work_dir, nm_obj):
         assert k4_contract(rd, r.settings.use_cornell_box), name
         max_err = max(max_err, rd["max_abs_err"])
         assert torch.equal(got, k4.launch_k4(*a, 1, 0)), f"{name}: K4 repeats differ"
+        composed = k4.compose(got, r.scene, r.settings)
         del got
-    print("K4 repeat launches bit-identical")
+        # The direct mode (the Renderer's): against the plain version's
+        # composed pass and against the records mode's.
+        direct = k4.launch_k4(*a, 1, 0, direct=True)
+        torch.cuda.synchronize()
+        assert direct.shape == (4, r.settings.n_pixels), name
+        for what, want_pass in (
+                ("plain", k4.compose(want, r.scene, r.settings)),
+                ("records + compose", composed)):
+            rd = direct_readings(direct, want_pass)
+            print_readings(f"{name}, direct vs {what}", rd)
+            assert k4_contract(rd, r.settings.use_cornell_box), f"{name} direct vs {what}"
+            max_err = max(max_err, rd["max_abs_err"])
+        assert torch.equal(direct, k4.launch_k4(*a, 1, 0, direct=True)), name
+        del direct, composed
+    print("K4 repeat launches bit-identical (records and direct)")
 
     # 20. Planted faults: each is a wrong K4, and each must break the contract.
     print("planted K4 faults against records_reference:")
@@ -1076,6 +1151,16 @@ def k4_phases(dev, card, work_dir, nm_obj):
         rd = k4_readings(r, bad, wants[name])
         print_readings(f"{what} ({name})", rd)
         assert not k4_contract(rd, r.settings.use_cornell_box), f"{what} passes"
+    print("planted K4 direct-mode faults against the plain version's pass:")
+    for what, (name, fault) in {
+            "HDRI one texel off in u": ("mesh-megakernel", k4.FAULT_ENV_U),
+            "texture v flipped": ("mesh-megakernel", k4.FAULT_TEX_V),
+            "MERL channel scale dropped": ("config 4", k4.FAULT_MERL_SCALE)}.items():
+        r = rs[name]
+        bad = k4.launch_k4(*k4_args(r), 1, 0, direct=True, fault=fault)
+        rd = direct_readings(bad, k4.compose(wants[name], r.scene, r.settings))
+        print_readings(f"{what} ({name})", rd)
+        assert not k4_contract(rd, r.settings.use_cornell_box), f"{what} passes"
     del wants, bad
 
     # 21. Render paths: K4 once a pass; no plain version, no K3, no K1/K2.
@@ -1087,6 +1172,7 @@ def k4_phases(dev, card, work_dir, nm_obj):
     integrator.render_pass = no_plain
     k4.launch_k4.count = k4.records_reference.count = trav.traverse.count = 0
     k3.launch_k3.count = k3.launch_k3b.count = k1.launch.count = k2.launch.count = 0
+    k4.compose.count = 0
     walls, launches = {}, {}
     for name, r in rs.items():
         if "no walls" in name:
@@ -1099,6 +1185,7 @@ def k4_phases(dev, card, work_dir, nm_obj):
         for i in range(K4_PASSES):
             img, depth = r.render()
             assert k4.launch_k4.count == base + i + 2
+            assert k4.compose.count == 0, "a Renderer pass composed records"
         torch.cuda.synchronize()
         walls[name] = (time.perf_counter() - t0) / K4_PASSES
         launches[name] = k4.launch_k4.count - base
@@ -1111,7 +1198,8 @@ def k4_phases(dev, card, work_dir, nm_obj):
         print(f"K4 render path, {name}: {walls[name] * 1e3:.3f} ms/pass wall, "
               f"{rays / walls[name] / 1e6:.1f} Mrays/s, image mean "
               f"{img.mean().item():.4f}, centre {centre:.4f}, K4 launches "
-              f"{launches[name]}, {card}")
+              f"{launches[name]} (mode {k4.mode(r.scene)}), compose calls "
+              f"{k4.compose.count}, {card}")
     integrator.render_pass = plain_pass
     assert (k4.records_reference.count, trav.traverse.count, k3.launch_k3.count,
             k3.launch_k3b.count, k1.launch.count, k2.launch.count) == (0,) * 6
@@ -1157,15 +1245,17 @@ def k4_phases(dev, card, work_dir, nm_obj):
     step = deferred_opt_step(s, torch.optim.Adam(params.leaves(), lr=0.05),
                              scene=r.scene)
     integrator.render_pass = no_plain
-    k4.launch_k4.count = 0
+    k4.launch_k4.count = k4.compose.count = 0
     losses = []
     t0 = time.perf_counter()
     for i in range(K4_STEPS):
         params, m = step(params, r.scene, r.camera, target, 1, r.fresnel_coef,
                          r.fresnel_pow)
         losses.append(m["loss"].item())
-        assert k4.launch_k4.count == i + 1
+        # The tables require grad: the records mode, then compose.
+        assert k4.launch_k4.count == k4.compose.count == i + 1
     step_wall = (time.perf_counter() - t0) / K4_STEPS
+    step_launches = (k4.launch_k4.count, k4.compose.count)
     device_profile("deferred_opt_step (config 4)", lambda: step(
         params, r.scene, r.camera, target, 1, r.fresnel_coef, r.fresnel_pow), 3,
         top=8)
@@ -1173,7 +1263,8 @@ def k4_phases(dev, card, work_dir, nm_obj):
     assert all(math.isfinite(x) for x in losses)
     print(f"deferred_opt_step, config 4 {s.width}x{s.height}, Adam on hdr + "
           f"brdf: loss {losses[0]:.6g} -> {losses[-1]:.6g} in {K4_STEPS} steps, "
-          f"K4 launches {k4.launch_k4.count}, {step_wall * 1e3:.3f} ms/step wall")
+          f"K4 launches {step_launches[0]} (records mode, compose calls "
+          f"{step_launches[1]}), {step_wall * 1e3:.3f} ms/step wall")
     assert losses[-1] < K4_LOSS_DROP * losses[0], losses
     # The same gradients through K4 + compose and through the wavefront's
     # autograd, on the same frame.
@@ -1233,17 +1324,28 @@ def k4_phases(dev, card, work_dir, nm_obj):
     assert px <= 0.02 and diff.mean().item() <= 2e-3  # the golden image contract
 
     # 24. Times (CUDA events), in turns, on the mesh-megakernel scene and
-    # config 4: K4 alone on packed tables, the pass (packing + K4 +
+    # config 4: K4 alone on packed tables in each mode, the pass in each
+    # mode (direct: render_pass_mesh, packing + K4; records: packing + K4 +
     # compose), compose alone, the plain version and the wavefront pass.
+    # On the other scenes with lobe MIS or the Cornell box, K4 alone in each
+    # mode (what its occupancy setting, kMinBlocks in csrc/mesh.cu, trades).
     timed = {}
+    for name in ("config 4 + MIS", "mesh + MERL + MIS", "Cornell + mesh + texture"):
+        a = k4_args(rs[name])
+        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), 10)
+        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
     for name in ("mesh-megakernel", "config 4"):
         r = rs[name]
         a = k4_args(r)
         rec = k4.launch_k4(*a, 1, 0)
         pargs = (r.scene, r.settings, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
         ws = r.settings.replace(radiance_kernel="wavefront")
-        timed[f"K4 {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
-        timed[f"pass {name}"] = (lambda p=pargs: k4.render_pass_mesh(*p), 10)
+        assert k4.mode(r.scene) == k4.DIRECT
+        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), 10)
+        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
+        timed[f"pass direct {name}"] = (lambda p=pargs: k4.render_pass_mesh(*p), 10)
+        timed[f"pass records {name}"] = (lambda r=r: k4.compose(
+            k4.launch_k4(*k4_args(r), 1, 0), r.scene, r.settings), 10)
         timed[f"compose {name}"] = (lambda rec=rec, r=r: k4.compose(rec, r.scene, r.settings), 10)
         timed[f"plain {name}"] = (lambda p=pargs, r=r: k4.compose(
             k4.records_reference(*p), r.scene, r.settings), 1)
@@ -1261,20 +1363,30 @@ def k4_phases(dev, card, work_dir, nm_obj):
     device_profile("K4 render pass (mesh-megakernel)", rs["mesh-megakernel"].render,
                    20, top=10)
 
-    # 26. K4's bound from the work it counts, per scene.
+    # 26. K4's bound from the work it counts, per scene and mode.
     rows = {}
     for name in ("mesh-megakernel", "config 4"):
         r = rs[name]
-        stats = torch.zeros(len(k4.STATS), dtype=torch.int64, device=dev)
-        k4.launch_k4(*k4_args(r), 1, 0, stats=stats)
-        counts = dict(zip(k4.STATS, stats.tolist()))
         n_slots = k4.layout(r.settings)[1]
-        b_ms, by, ops, n_bytes = k4_bound(r, stats.tolist(), n_slots)
-        rows[name] = (b_ms, by)
-        print(f"K4 bound, {name}: {b_ms:.4f} ms ({by}; {counts}; ops {ops}; "
-              f"bytes {n_bytes}, records {4 * n_slots * r.settings.n_pixels} "
-              f"written and read again by compose), measured {ms[f'K4 {name}']:.4f}"
-              f" ms = {b_ms / ms[f'K4 {name}']:.1%} of bound, {card}")
+        for mode in (k4.DIRECT, k4.RECORDS):
+            stats = torch.zeros(len(k4.STATS), dtype=torch.int64, device=dev)
+            k4.launch_k4(*k4_args(r), 1, 0, stats=stats, direct=mode == k4.DIRECT)
+            counts = dict(zip(k4.STATS, stats.tolist()))
+            b_ms, by, ops, n_bytes = k4_bound(r, stats.tolist(), n_slots,
+                                              direct=mode == k4.DIRECT)
+            rows[(name, mode)] = (b_ms, by)
+            k_ms = ms[f"K4 {mode} {name}"]
+            print(f"K4 bound, {name}, {mode} mode: {b_ms:.4f} ms ({by}; {counts}; "
+                  f"ops {ops}; bytes {n_bytes}"
+                  + (f", records {4 * n_slots * r.settings.n_pixels} written and "
+                     "read again by compose" if mode == k4.RECORDS else "")
+                  + f"), measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound, {card}")
+    for name in ("mesh-megakernel", "config 4"):
+        print(f"K4 pass, {name}: direct {ms[f'pass direct {name}']:.4f} ms "
+              f"(K4 {ms[f'K4 direct {name}']:.4f}), records "
+              f"{ms[f'pass records {name}']:.4f} ms (K4 "
+              f"{ms[f'K4 records {name}']:.4f}, compose {ms[f'compose {name}']:.4f}), "
+              f"{card}")
     return {
         "name": "K4 fused mesh-scene pass",
         "route": "cuda",
@@ -1283,15 +1395,19 @@ def k4_phases(dev, card, work_dir, nm_obj):
         "launches": k4_launches,
         "launches_by_scene": launches,
         "max_abs_err": max_err,
-        "ms": ms["K4 mesh-megakernel"],
-        "ms_config4": ms["K4 config 4"],
-        "pass_ms": ms["pass mesh-megakernel"],
+        "ms": ms["K4 direct mesh-megakernel"],
+        "ms_records": ms["K4 records mesh-megakernel"],
+        "ms_config4": ms["K4 direct config 4"],
+        "ms_records_config4": ms["K4 records config 4"],
+        "pass_ms": ms["pass direct mesh-megakernel"],
+        "pass_records_ms": ms["pass records mesh-megakernel"],
         "compose_ms": ms["compose mesh-megakernel"],
         "wavefront_ms": ms["wavefront mesh-megakernel"],
         "plain_ms": ms["plain mesh-megakernel"],
-        "bound_ms": rows["mesh-megakernel"][0],
-        "bound_by": rows["mesh-megakernel"][1],
-        "bound_ms_config4": rows["config 4"][0],
+        "bound_ms": rows[("mesh-megakernel", k4.DIRECT)][0],
+        "bound_by": rows[("mesh-megakernel", k4.DIRECT)][1],
+        "bound_ms_records": rows[("mesh-megakernel", k4.RECORDS)][0],
+        "bound_ms_config4": rows[("config 4", k4.DIRECT)][0],
         "grad_rel_err": grad_err,
         "library_ms": None,
     }

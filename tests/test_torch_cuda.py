@@ -21,7 +21,9 @@ slot and t are K3's bit for bit, and its captured attributes are held to
 ``capture_reference`` at its own winners within rtol 1e-4 / atol 1e-5
 (``capture_contract``), which each of its planted faults must break.
 K4 is held to chip_smoke.py's K4 contract (``k4_contract``) against
-``records_reference``, record by record and on the composed image.  K5 is
+``records_reference``, record by record and on the composed image; its
+direct mode on the image and the depth, against the plain version's and
+the records mode's composed passes.  K5 is
 held to K3's contract against ``traverse_paged_reference`` and
 ``brute_force``; K6 to the plain chain at ``probe.CHECK_C``/``CHECK_A``,
 where the chain moves in both dtypes (float32 rtol 1e-4: the plain chain
@@ -388,6 +390,23 @@ def test_k3_matches_plain_and_brute_force(meshes, wide):
     _assert_traversal_contract(cpu, tuple(x.cpu() for x in got), on_cpu, t.cpu())
 
 
+def test_k3_walk_matches_plain(meshes):
+    """K3's walk (near to far, popped nodes culled, one 256-entry stack)
+    against the plain traverse under the traversal contract, on rays of
+    their own seed, with and without the work counters."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", seed=7)
+    got = k3.launch_k3(card, o, d, t)
+    stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+    counted = k3.launch_k3(card, o, d, t, stats=stats)
+    assert torch.equal(got[0], counted[0]) and torch.equal(got[1], counted[1])
+    assert stats[0].item() > 0
+    _assert_traversal_contract(card, got, traverse(card, o, d, t), t)
+
+
 def test_k3_and_k3b_agree_and_repeat_bit_identical(meshes):
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
 
@@ -614,15 +633,45 @@ def test_k4_matches_plain_and_repeats_bit_identical(cuda, tmp_path, kind):
     assert torch.equal(got, k4.launch_k4(*k4_args(r), 1, 0))
 
 
+@pytest.mark.parametrize("kind", ["textured mesh", "example sphere merl"])
+def test_k4_direct_matches_records_and_plain(cuda, tmp_path, kind):
+    """K4's direct mode against the plain version's composed pass and the
+    records mode's, under chip_smoke.py's K4 contract on the image and the
+    depth; its planted fetch faults break it."""
+    from chip_smoke import direct_readings, k4_args, k4_contract
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer(kind, cuda, tmp_path)
+    a = k4_args(r)
+    before = k4.launch_k4.count
+    got = k4.launch_k4(*a, 1, 0, direct=True)
+    torch.cuda.synchronize()
+    assert k4.launch_k4.count == before + 1 and got.shape == (4, r.settings.n_pixels)
+    plain = k4.compose(k4.records_reference(r.scene, r.settings, r.camera, 1,
+                                            r.fresnel_coef, r.fresnel_pow, 0),
+                       r.scene, r.settings)
+    records = k4.compose(k4.launch_k4(*a, 1, 0), r.scene, r.settings)
+    cornell = r.settings.use_cornell_box
+    for want in (plain, records):
+        assert k4_contract(direct_readings(got, want), cornell)
+    assert torch.equal(got, k4.launch_k4(*a, 1, 0, direct=True))
+    fault = k4.FAULT_MERL_SCALE if "merl" in kind else k4.FAULT_ENV_U
+    bad = k4.launch_k4(*a, 1, 0, direct=True, fault=fault)
+    assert not k4_contract(direct_readings(bad, plain), cornell)
+    with pytest.raises(ValueError):
+        k4.launch_k4(*a, 1, 0, fault=fault)  # a direct fault in records mode
+
+
 def test_k4_renderer_runs_k4_each_pass_and_matches_cpu(cuda, tmp_path):
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
     from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
 
     r = _k4_renderer("textured mesh", cuda, tmp_path)
-    before = (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count)
+    before = (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count,
+              k4.compose.count)
     img, depth = r.render_frames(3)
-    assert (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count) == (
-        before[0] + 3, before[1], before[2])
+    assert (k4.launch_k4.count, k4.records_reference.count, k3.launch_k3.count,
+            k4.compose.count) == (before[0] + 3, before[1], before[2], before[3])
     cpu = _k4_renderer("textured mesh", "cpu", tmp_path)
     assert cpu.settings.radiance_kernel == "torch"
     cimg, cdepth = cpu.render_frames(3)

@@ -54,7 +54,7 @@ def _lib():
 
     lib = build.load("paged")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vpt_traverse_paged.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr] * 3
+    lib.vpt_traverse_paged.argtypes = ([ptr] * 3 + [i32] * 3 + [ptr] * 3
                                        + [i32] + [ptr] * 3 + [i32, ptr])
     lib.vpt_traverse_paged.restype = ctypes.c_int
     return lib
@@ -83,10 +83,10 @@ def launch_k5(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None, fault=0):
     with torch.cuda.device(device):
         err = _lib().vpt_traverse_paged(
             pg.nodes8_f.data_ptr(), pg.nodes8_i.data_ptr(),
-            pg.nodes8_ax.data_ptr(), pg.tri_pack.data_ptr(), pg.n_top,
-            pg.page_tris, mesh.tri_v0.shape[0], ray_o.data_ptr(),
-            ray_d.data_ptr(), t_max.data_ptr(), b, slot.data_ptr(),
-            t.data_ptr(), None if stats is None else stats.data_ptr(),
+            pg.tri_pack.data_ptr(), pg.n_top, pg.page_tris,
+            mesh.tri_v0.shape[0], ray_o.data_ptr(), ray_d.data_ptr(),
+            t_max.data_ptr(), b, slot.data_ptr(), t.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             int(fault), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError_t {err}")

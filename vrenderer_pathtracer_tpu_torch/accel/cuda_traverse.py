@@ -64,9 +64,9 @@ def _lib():
 
     lib = build.load("traverse")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vpt_traverse_wide.argtypes = [ptr] * 7 + [i32] + [ptr] * 4
+    lib.vpt_traverse_wide.argtypes = [ptr] * 6 + [i32] + [ptr] * 4
     lib.vpt_traverse_binary.argtypes = [ptr] * 8 + [i32] + [ptr] * 4
-    lib.vpt_traverse_capture.argtypes = ([ptr] * 7 + [i32] + [ptr] * 8 + [i32]
+    lib.vpt_traverse_capture.argtypes = ([ptr] * 6 + [i32] + [ptr] * 8 + [i32]
                                          + [ptr] * 4 + [i32, ptr])
     for fn in (lib.vpt_traverse_wide, lib.vpt_traverse_binary,
                lib.vpt_traverse_capture):
@@ -164,7 +164,7 @@ def launch_k3(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None, capture=(),
                                 tuple(mesh.tri_pack.shape))):
         _check(name, getattr(mesh, name), device, dtype, shape, aligned=True)
     ptrs = [mesh.nodes8_f.data_ptr(), mesh.nodes8_i.data_ptr(),
-            mesh.nodes8_ax.data_ptr(), mesh.tri_pack.data_ptr()]
+            mesh.tri_pack.data_ptr()]
     if not capture:
         if fault:
             raise ValueError("K3's faults are K3c's: pass capture=")

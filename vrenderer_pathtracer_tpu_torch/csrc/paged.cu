@@ -77,7 +77,7 @@ __device__ __forceinline__ void add_work(unsigned long long* stats, const Work& 
 
 __global__ void __launch_bounds__(kThreads)
 paged_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
-             const int* __restrict__ axes, const float* __restrict__ pack,
+             const float* __restrict__ pack,
              int n_top, int page_tris, int n_slots,
              const float* __restrict__ ray_o, const float* __restrict__ ray_d,
              const float* __restrict__ t_max, int n,
@@ -138,7 +138,7 @@ paged_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
             continue;
           }
           ++pages;
-          const Hit h = traverse_wide(boxes, recs, axes, pack, r, best_t, w, e.node);
+          const Hit h = traverse_wide(boxes, recs, pack, r, best_t, w, e.node);
           if (h.slot >= 0) {
             best_t = h.t;
             best_slot = h.slot;
@@ -189,14 +189,14 @@ paged_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
 }  // namespace
 
 // Launch K5 on `stream`; returns cudaGetLastError() (0 on success).  All
-// pointers are device pointers: boxes [N*8,8] f32, records [N,16] i32, axes
-// [N] i32, pack [T8,16] f32 (scene.PagedNodes), ray_o/ray_d [n,3] f32,
-// t_max [n] f32, slot [n] i32, t [n] f32; `stats` is null or 4 u64 (node
-// visits, box tests, triangle tests, pages searched) the kernel adds to.
-// `n_slots` is the length of the mesh's slot arrays; `fault` is 0 in use.
+// pointers are device pointers: boxes [N*8,8] f32, records [N,16] i32, pack
+// [T8,16] f32 (scene.PagedNodes), ray_o/ray_d [n,3] f32, t_max [n] f32,
+// slot [n] i32, t [n] f32; `stats` is null or 4 u64 (node visits, box tests,
+// triangle tests, pages searched) the kernel adds to.  `n_slots` is the
+// length of the mesh's slot arrays; `fault` is 0 in use.
 extern "C" int vpt_traverse_paged(const void* boxes, const void* recs,
-                                  const void* axes, const void* pack, int n_top,
-                                  int page_tris, int n_slots, const void* ray_o,
+                                  const void* pack, int n_top, int page_tris,
+                                  int n_slots, const void* ray_o,
                                   const void* ray_d, const void* t_max, int n,
                                   void* slot, void* t, void* stats, int fault,
                                   void* stream) {
@@ -204,11 +204,10 @@ extern "C" int vpt_traverse_paged(const void* boxes, const void* recs,
     paged_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const int*>(recs),
-        static_cast<const int*>(axes), static_cast<const float*>(pack), n_top,
-        page_tris, n_slots, static_cast<const float*>(ray_o),
-        static_cast<const float*>(ray_d), static_cast<const float*>(t_max), n,
-        static_cast<int*>(slot), static_cast<float*>(t),
-        static_cast<unsigned long long*>(stats), fault);
+        static_cast<const float*>(pack), n_top, page_tris, n_slots,
+        static_cast<const float*>(ray_o), static_cast<const float*>(ray_d),
+        static_cast<const float*>(t_max), n, static_cast<int*>(slot),
+        static_cast<float*>(t), static_cast<unsigned long long*>(stats), fault);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,26 +16,28 @@
 // (K3) or ~2 MB (K3b), inside the 50 MB L2, and a ray reads 28 bytes and
 // writes 8; every node visit costs 8 (K3) or 2 (K3b) slab tests and every
 // leaf up to 8 triangle tests, per ray, with neighbouring rays on different
-// paths through the tree.  The design therefore:
-//   * one thread per ray, its stack in local memory (K3b: 96 entries,
-//     accel/mesh.py STACK_DEPTH; K3: 256 entries, >= 7 * depth + 1 for every
-//     tree pack_from_bvh accepts), all other state in registers;
+// paths through the tree.  So the work a ray does is what to cut, and the
+// design:
+//   * one thread per ray, all state in registers but the stack, which is in
+//     local memory (K3b: 96 entries, accel/mesh.py STACK_DEPTH; K3: 256
+//     entries of 8 bytes, >= 7 * depth + 1 for every tree pack_from_bvh
+//     accepts; a thread touches only the entries its walk reaches);
 //   * the TPU kernel's block-shared stack and any-hit votes, root-exit clamp,
 //     32x32 tile remap, packed 20-bit records and lane-dense layouts are
 //     Mosaic/VMEM workarounds and are gone;
 //   * the BVH and triangle arrays go through the read-only cache (__ldg),
 //     a K3 child box as one float4 + one float2, a leaf-block row as three
 //     float4, a K3b node as three float4 + one int4;
+//   * both walk near to far by slab entry distance: K3 tests a node's hit
+//     leaves nearest first until the nearest left starts past the best hit,
+//     pushes its inner children far to near with their entry distances, and
+//     skips a popped node that a closer hit has put out of reach without
+//     reading its boxes (traverse.cuh traverse_wide); K3b pushes by entry
+//     distance as traverse does;
 //   * the closest hit is updated on strict t < best, so the first triangle in
 //     leaf order wins a tie, as in traverse.  K3b tests a leaf as soon as its
 //     box is hit, as traverse does.  K3 slab-tests a node's eight children
-//     first, then tests its hit leaves near to far through one copy of the
-//     triangle test (measured on an H100 80GB HBM3 at 700 W, chip_smoke.py:
-//     1.475 ms per 1024^2 nm pass against 1.593 ms for testing each leaf
-//     inside the unrolled child loop);
-//   * inner children are pushed far to near: K3 visits a node's children in
-//     the ray's direction along the node's stored sort axis and pushes them
-//     in the reverse order, K3b pushes by entry distance as traverse does;
+//     first, then its hit leaves through one copy of the triangle test;
 //   * a ray with t_max <= 0 (the integrator's dead lanes) returns at once:
 //     no triangle at t > TRI_EPS can be closer.
 //
@@ -84,7 +86,7 @@ __device__ __forceinline__ void add_work(unsigned long long* stats, const Work& 
 // K3: the 8-wide BVH (layout: traverse.cuh traverse_wide).
 __global__ void __launch_bounds__(kThreads)
 traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
-                     const int* __restrict__ axes, const float* __restrict__ pack,
+                     const float* __restrict__ pack,
                      const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                      const float* __restrict__ t_max, int n,
                      int* __restrict__ slot_out, float* __restrict__ t_out,
@@ -95,7 +97,7 @@ traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ re
   Work w;
   Hit h;
   if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
-    h = traverse_wide(boxes, recs, axes, pack, load_ray(ray_o, ray_d, i), tmax, w);
+    h = traverse_wide(boxes, recs, pack, load_ray(ray_o, ray_d, i), tmax, w);
   } else {
     h.slot = -1;
     h.t = tmax;
@@ -140,7 +142,7 @@ __device__ __forceinline__ void bary3(const float* rows, float w, float u,
 template <unsigned kCap, int kFault>
 __global__ void __launch_bounds__(kThreads)
 traverse_capture_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
-                        const int* __restrict__ axes, const float* __restrict__ pack,
+                        const float* __restrict__ pack,
                         const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                         const float* __restrict__ t_max, int n,
                         int* __restrict__ slot_out, float* __restrict__ t_out,
@@ -152,7 +154,7 @@ traverse_capture_kernel(const float* __restrict__ boxes, const int* __restrict__
   Work w;
   Hit h;
   if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
-    h = traverse_wide<kFault == kFaultStaleAttrs>(boxes, recs, axes, pack,
+    h = traverse_wide<kFault == kFaultStaleAttrs>(boxes, recs, pack,
                                                   load_ray(ray_o, ray_d, i), tmax, w);
   } else {
     h.slot = h.attr = -1;
@@ -292,22 +294,21 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 }  // namespace
 
 // Launch K3 on `stream`; returns cudaGetLastError() (0 on success).  All
-// pointers are device pointers: boxes [N*8,8] f32, records [N,16] i32, axes
-// [N] i32, pack [T8,16] f32, ray_o/ray_d [n,3] f32, t_max [n] f32, slot [n]
-// i32, t [n] f32; `stats` is null or 3 u64 (visits, box tests, triangle
-// tests) the kernel adds to.
+// pointers are device pointers: boxes [N*8,8] f32, records [N,16] i32, pack
+// [T8,16] f32, ray_o/ray_d [n,3] f32, t_max [n] f32, slot [n] i32, t [n]
+// f32; `stats` is null or 3 u64 (visits, box tests, triangle tests) the
+// kernel adds to.
 extern "C" int vpt_traverse_wide(const void* boxes, const void* recs,
-                                 const void* axes, const void* pack,
-                                 const void* ray_o, const void* ray_d,
-                                 const void* t_max, int n, void* slot, void* t, void* stats,
-                                 void* stream) {
+                                 const void* pack, const void* ray_o,
+                                 const void* ray_d, const void* t_max, int n,
+                                 void* slot, void* t, void* stats, void* stream) {
   if (n > 0) {
     traverse_wide_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const int*>(recs),
-        static_cast<const int*>(axes), static_cast<const float*>(pack),
-        static_cast<const float*>(ray_o), static_cast<const float*>(ray_d),
-        static_cast<const float*>(t_max), n, static_cast<int*>(slot),
-        static_cast<float*>(t), static_cast<unsigned long long*>(stats));
+        static_cast<const float*>(pack), static_cast<const float*>(ray_o),
+        static_cast<const float*>(ray_d), static_cast<const float*>(t_max), n,
+        static_cast<int*>(slot), static_cast<float*>(t),
+        static_cast<unsigned long long*>(stats));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -321,14 +322,13 @@ extern "C" int vpt_traverse_wide(const void* boxes, const void* recs,
 // picked: 1 u and v swapped, 2 the tangent unnormalised, 3 the first
 // winner's attributes kept.
 extern "C" int vpt_traverse_capture(const void* boxes, const void* recs,
-                                    const void* axes, const void* pack,
-                                    const void* ray_o, const void* ray_d,
-                                    const void* t_max, int n, void* slot, void* t,
-                                    void* stats, const void* e1, const void* e2,
-                                    const void* uv, const void* tan, const void* nrm,
-                                    int mask, void* normal_out, void* uv_out,
-                                    void* tangent_out, void* smooth_out, int fault,
-                                    void* stream) {
+                                    const void* pack, const void* ray_o,
+                                    const void* ray_d, const void* t_max, int n,
+                                    void* slot, void* t, void* stats, const void* e1,
+                                    const void* e2, const void* uv, const void* tan,
+                                    const void* nrm, int mask, void* normal_out,
+                                    void* uv_out, void* tangent_out, void* smooth_out,
+                                    int fault, void* stream) {
   const Attrs a{static_cast<const float*>(e1), static_cast<const float*>(e2),
                 static_cast<const float*>(uv), static_cast<const float*>(tan),
                 static_cast<const float*>(nrm)};
@@ -339,10 +339,10 @@ extern "C" int vpt_traverse_capture(const void* boxes, const void* recs,
 #define VPT_K3C(MASK, FAULT)                                                          \
   traverse_capture_kernel<MASK, FAULT><<<blocks_for(n), kThreads, 0, s>>>(             \
       static_cast<const float*>(boxes), static_cast<const int*>(recs),                \
-      static_cast<const int*>(axes), static_cast<const float*>(pack),                 \
-      static_cast<const float*>(ray_o), static_cast<const float*>(ray_d),             \
-      static_cast<const float*>(t_max), n, static_cast<int*>(slot),                   \
-      static_cast<float*>(t), static_cast<unsigned long long*>(stats), a, c)
+      static_cast<const float*>(pack), static_cast<const float*>(ray_o),              \
+      static_cast<const float*>(ray_d), static_cast<const float*>(t_max), n,          \
+      static_cast<int*>(slot), static_cast<float*>(t),                                \
+      static_cast<unsigned long long*>(stats), a, c)
   if (fault != 0) {  // the faults capture every field
     if (mask != 15) return static_cast<int>(cudaErrorInvalidValue);
     switch (fault) {

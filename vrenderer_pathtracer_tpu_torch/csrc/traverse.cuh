@@ -2,8 +2,13 @@
 // K4 (mesh.cu) and K5 (paged.cu): the ray with its guarded reciprocal, the
 // slab test, the Möller–Trumbore triangle test, the work counters, and the
 // whole per-ray closest-hit search over the 8-wide tree (traverse_wide),
-// which K3 and K3c run for one ray per thread and K4 runs at every bounce of
-// its path loop.
+// which K3 and K3c run for one ray per thread, K4 at every bounce of its
+// path loop and K5 from the root of every page a ray enters.  What bounds
+// that search is the work a ray does (node visits, slab and triangle
+// tests) and the latency of its dependent loads, not device memory: the
+// walk orders children by entry distance and culls what a closer hit has
+// put out of reach, and keeps its stack in the thread's local memory
+// (traverse_wide).
 //
 // Numerics: see traverse.cu (no --use_fast_math; the triangle test is left
 // to nvcc's FMA contraction).
@@ -100,24 +105,48 @@ __device__ __forceinline__ void push(int* stack, int& sp, int cap, int node) {
   if (sp < cap) stack[sp++] = node;
 }
 
+// An entry of traverse_wide's stack: a node and the distance at which the
+// ray enters its box, rounded down (child_key), so a cull on it never drops
+// a node the ray could still reach before its best hit.
+struct Entry {
+  int node;
+  float t;
+};
+
+// A hit child's sort key: the bits of max(t_near, 0) with the four low
+// mantissa bits replaced by 8 | c.  Non-negative floats order as their bits
+// do, so the min (max) of the keys is the nearest (farthest) child, ties by
+// index; bit 3 keeps every key non-zero and below ~0, the two sentinels.
+__device__ __forceinline__ unsigned child_key(float t_near, int c) {
+  return (__float_as_uint(fmaxf(t_near, 0.f)) & ~15u) | 8u | static_cast<unsigned>(c);
+}
+
+// The entry distance a key holds, rounded down to its 19 mantissa bits.
+__device__ __forceinline__ float key_t(unsigned key) {
+  return __uint_as_float(key & ~15u);
+}
+
 // The closest hit of ray `r` with t < t_max over the 8-wide BVH below node
 // `root`: boxes [N*8, 8] (child c of node w at row w*8+c: lo xyz, hi xyz, 0,
 // 0), records [N, 16] (8 x (ref, count); count 0 inner, > 0 leaf rows of
-// `pack`, < 0 empty), axes [N], pack [T8, 16] (v0, e1, e2, slot, uv
-// corners).  A ray with t_max <= 0 (a dead lane), or NaN, returns a miss at
-// once.  `w` counts the work.  K3 and K4 search from root 0; K5 (paged.cu)
-// from the root of each page it enters.
+// `pack`, < 0 empty), pack [T8, 16] (v0, e1, e2, slot, uv corners).  The
+// layout's per-node sort axes are not read.  A ray with t_max <= 0 (a dead
+// lane), or NaN, returns a miss at once.  `w` counts the work.  K3 and K4
+// search from root 0; K5 (paged.cu) from the root of each page it enters.
 //
-// The eight slab tests of a node come first, then its hit leaves near to
-// far through one copy of the triangle test; inner children are pushed far
-// to near along the node's sort axis, so the nearest pops first.  The
-// closest hit is updated on strict t < best, so the first triangle in leaf
-// order wins a tie.  kStaleAttrs plants a fault for K3c's check
-// (chip_smoke.py): (u, v, attr) keep the first winner's after a closer hit.
+// A popped node whose entry distance is at or beyond the best hit so far is
+// skipped before its boxes are read.  Otherwise its eight slab tests come
+// first; then its hit leaves, nearest first by entry distance, through one
+// copy of the triangle test, until the nearest left is entered at or past
+// the best hit; then its hit inner children that the ray enters before the
+// best hit, pushed far to near with their entry distances, so the nearest
+// pops first.  The closest hit is updated on strict t < best, so within a
+// leaf the first triangle wins a tie.  kStaleAttrs plants a fault for K3c's
+// check (chip_smoke.py): (u, v, attr) keep the first winner's after a
+// closer hit.
 template <bool kStaleAttrs = false>
 __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
                                              const int* __restrict__ recs,
-                                             const int* __restrict__ axes,
                                              const float* __restrict__ pack,
                                              const Ray& r, float t_max, Work& w,
                                              int root = 0) {
@@ -126,21 +155,28 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
   h.t = t_max;
   h.u = h.v = 0.f;
   if (!(t_max > 0.f)) return h;
-  int stack[kWideStack];
+  // The stack: kWideStack entries in local memory, the thread's own array.
+  // Local memory is interleaved by thread, so a warp's accesses at one depth
+  // coalesce; a thread touches only the entries its walk reaches (the nm
+  // sphere's tree needs 50), so the array's size costs neither traffic nor
+  // occupancy.  Stacks sized to the tree (32 and 64 entries) timed the same
+  // as this one, and the same entries in shared memory, laid out
+  // [entry][thread], made K3 more than 2x slower on the nm waves (PERF.md
+  // §6).
+  Entry stack[kWideStack];
+  stack[0] = Entry{root, 0.f};
   int sp = 1;
-  stack[0] = root;
   while (sp > 0) {
-    const int node = stack[--sp];
+    const Entry e = stack[--sp];
+    if (e.t >= h.t) continue;  // a closer hit has put the node out of reach
     ++w.visits;
-    const int ax = __ldg(axes + node);
-    const float d_ax = ax == 0 ? r.d[0] : (ax == 1 ? r.d[1] : r.d[2]);
-    const int flip = d_ax >= 0.f ? 0 : 7;  // children near to far
-    const float* bx = boxes + 64 * node;
-    const int2* rec = reinterpret_cast<const int2*>(recs) + 8 * node;
-    unsigned inner = 0, leaves = 0;
+    const float* bx = boxes + 64 * e.node;
+    const int2* rec = reinterpret_cast<const int2*>(recs) + 8 * e.node;
+    unsigned leaf[8], inner[8];  // keys of the hit children; ~0u and 0 where none
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = k ^ flip;
+    for (int c = 0; c < 8; ++c) {
+      leaf[c] = ~0u;
+      inner[c] = 0u;
       const int cnt = __ldg(&rec[c].y);
       if (cnt < 0) continue;
       ++w.boxes;
@@ -148,15 +184,20 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
       const float2 b = __ldg(reinterpret_cast<const float2*>(bx + 8 * c + 4));
       float tn;
       if (slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, tn)) {
-        (cnt == 0 ? inner : leaves) |= 1u << c;
+        const unsigned key = child_key(tn, c);
+        if (cnt == 0) inner[c] = key; else leaf[c] = key;
       }
     }
-    // The hit leaves, near to far, through one copy of the triangle test.
+    // The hit leaves, nearest first, through one copy of the triangle test.
 #pragma unroll 1
-    for (int k = 0; k < 8; ++k) {
-      const int c = k ^ flip;
-      if (!(leaves >> c & 1u)) continue;
-      const int2 rc = __ldg(rec + c);  // (ref, count)
+    while (true) {
+      unsigned k = leaf[0];
+#pragma unroll
+      for (int c = 1; c < 8; ++c) k = min(k, leaf[c]);
+      if (k == ~0u || key_t(k) >= h.t) break;  // none left that can be closer
+#pragma unroll
+      for (int c = 0; c < 8; ++c) leaf[c] = leaf[c] == k ? ~0u : leaf[c];
+      const int2 rc = __ldg(rec + (k & 7u));  // (ref, count)
       const int cnt = min(rc.y, kMaxLeaf);
       for (int j = 0; j < cnt; ++j) {
         const float4* row = reinterpret_cast<const float4*>(pack) + 4 * (rc.x + j);
@@ -177,11 +218,17 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
         }
       }
     }
-    // Push the inner children far to near, so the nearest pops first.
+    // The inner children, farthest first, so the nearest pops first.
+#pragma unroll 1
+    while (true) {
+      unsigned k = inner[0];
 #pragma unroll
-    for (int k = 7; k >= 0; --k) {
-      const int c = k ^ flip;
-      if (inner >> c & 1u) push(stack, sp, kWideStack, __ldg(&rec[c].x));
+      for (int c = 1; c < 8; ++c) k = max(k, inner[c]);
+      if (k == 0u) break;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) inner[c] = inner[c] == k ? 0u : inner[c];
+      // accel/mesh.py checks at pack time that the tree's need fits.
+      if (key_t(k) < h.t && sp < kWideStack) stack[sp++] = Entry{__ldg(&rec[k & 7u].x), key_t(k)};
     }
   }
   return h;

@@ -5,18 +5,20 @@ hand-written CUDA C++ in ``csrc/mesh.cu``; its header says what it computes
 and what bounds it on the card.  It runs the whole bounce loop of the
 general scene (spheres, the example sphere or the mesh through K3's device
 search, threefry draws, the Fresnel/diffuse/mirror scatter, the MERL cosine
-sample or lobe MIS) and writes per-(sample, bounce) records instead of
-radiance wherever a table's value enters the estimator only as a factor:
+sample or lobe MIS).  Three tables enter the estimator only as factors:
 
     radiance = sum_b [ A_b * PD_b  +  E_b * env(dir_b) * PD_b ],
     PD_b     = prod_{j<b} D_j,
 
 with ``A_b = live_b * M_b * em_b`` and ``E_b = miss_b * M_b`` carrying the
-kernel's throughput ``M_b`` and ``D_j`` the deferred factors (the diffuse
+kernel's throughput ``M_b`` and ``D_j`` the table factors (the diffuse
 texture's colour at ``uv_j``, ``24 * max(merl[midx_j], 0)``; 1 elsewhere).
-:func:`compose` does the table fetches and the composition in torch, so
-gradients with respect to the HDRI, the diffuse map and the MERL table flow
-through it alone: K4 has no backward, and takes no input that requires one.
+In direct mode (every forward pass) K4 fetches the tables and sums this
+itself.  In records mode it writes the per-(sample, bounce) records
+``A``, ``E``, ``dir``, ``uv``, ``midx`` instead, and :func:`compose` does
+the fetches and the sum in torch, so gradients with respect to the HDRI,
+the diffuse map and the MERL table flow through it alone: K4 has no
+backward, and takes no input that requires one.
 
 This module:
 
@@ -25,10 +27,16 @@ This module:
 * ``records_reference`` — the plain PyTorch version of K4, the same records
   from the integrator's intersection and scatter with the deferred factors
   held at 1; ``.count`` counts its calls;
-* ``launch_k4`` — the launch on packed tables; ``.count`` counts launches;
-* ``compose`` — the differentiable epilogue;
-* ``render_pass_mesh`` — the pass: K4 for CUDA tensors, the plain version
-  for CPU tensors, then ``compose``;
+* ``mode`` — which of K4's two modes a pass takes: ``"records"`` (the
+  records, then ``compose``) when autograd is on and a table requires a
+  gradient, else ``"direct"`` (K4 fetches the tables itself and writes only
+  depth and rgb, ``[4, N]``; no records and no ``compose``);
+* ``launch_k4`` — the launch on packed tables, in either mode; ``.count``
+  counts launches;
+* ``compose`` — the differentiable epilogue; ``.count`` counts calls;
+* ``render_pass_mesh`` — the pass: K4 for CUDA tensors in the pass's mode,
+  the plain version (``records_reference`` + ``compose``, the same function
+  in both modes) for CPU tensors;
 * ``records_agreement`` — how two record sets agree (the card's contract).
 """
 
@@ -49,7 +57,7 @@ from vrenderer_pathtracer_tpu_torch.core import rng
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera, generate_rays, pixel_ids
 from vrenderer_pathtracer_tpu_torch.ops import brdf_sampling
 from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
-from vrenderer_pathtracer_tpu_torch.ops.brdf import channel_scale, merl_index
+from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE, channel_scale, merl_index
 from vrenderer_pathtracer_tpu_torch.ops.envmap import (
     sample_env_bilinear, sample_env_nearest)
 from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
@@ -63,8 +71,14 @@ from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF
 # wrong kernel in one way, for checking that the card's contract catches it
 # (the lobe-MIS factor left at 1; the MERL index one phi_d bin off; a killed
 # Cornell sample's A and E records and emission kept; uv shifted by
-# ``fault_arg``).  Every real launch passes NO_FAULT.
+# ``fault_arg``); and in direct mode only (``DIRECT_FAULTS``, instances of
+# their own) the HDRI fetched one texel on in u, the diffuse texture at
+# 1 - v, the MERL factor without its channel scale.  Every real launch
+# passes NO_FAULT.
 NO_FAULT, FAULT_MIS_FACTOR, FAULT_MERL_INDEX, FAULT_KILL, FAULT_UV = range(5)
+FAULT_ENV_U, FAULT_TEX_V, FAULT_MERL_SCALE = range(5, 8)
+DIRECT_FAULTS = (FAULT_ENV_U, FAULT_TEX_V, FAULT_MERL_SCALE)
+RECORDS, DIRECT = "records", "direct"
 
 
 class Defer:
@@ -293,12 +307,16 @@ class _Params(ctypes.Structure):
             "per_sb", "off_a", "off_e", "off_dir", "off_uv", "off_midx",
             "rgb_slot", "fault")] + [
         (name, ctypes.c_uint) for name in ("seed_lo", "seed_hi", "frame")] + [
-        ("depth_scale", ctypes.c_float), ("fault_arg", ctypes.c_float)]
+        ("depth_scale", ctypes.c_float), ("fault_arg", ctypes.c_float)] + [
+        (name, ctypes.c_void_p) for name in ("hdr", "tex", "brdf")] + [
+        (name, ctypes.c_int) for name in (
+            "hdr_w", "hdr_h", "tex_w", "tex_h", "bilinear", "direct")]
 
 
-# The kernel's work counters (csrc/mesh.cu kStats), in order.
+# The kernel's work counters (csrc/mesh.cu kStats), in order; the last two
+# count direct mode's HDRI and texture fetches (0 in records mode).
 STATS = ("node_visits", "box_tests", "triangle_tests", "traced_steps", "hits",
-         "brdf_hits", "mis_draws")
+         "brdf_hits", "mis_draws", "env_fetches", "tex_fetches")
 
 # Flag bits (csrc/mesh.cu kFlag*).
 _CORNELL, _EXAMPLE, _MESH, _USE_BRDF, _ENV, _TEX, _MERL, _MIS = (1 << i for i in range(8))
@@ -350,16 +368,42 @@ def _check(name, t, device, dtype, shape=None):
         raise ValueError(f"K4 {name} is not 16-byte aligned")
 
 
+def mode(scene: Scene) -> str:
+    """The mode of a K4 pass on ``scene``: ``RECORDS`` when autograd is on
+    and any of ``scene.hdr``, ``scene.diffuse_map`` or ``scene.brdf``
+    requires a gradient (``deferred_opt_step``: the gradients flow through
+    :func:`compose`), else ``DIRECT`` (every ``Renderer`` pass)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (scene.hdr, scene.diffuse_map, scene.brdf)):
+        return RECORDS
+    return DIRECT
+
+
+def _table(name, t, device, shape):
+    """A table the direct mode fetches, as the kernel reads it."""
+    if t is None:
+        raise ValueError(f"K4's direct mode fetches {name}, and the scene has none")
+    t = t.detach().contiguous()  # read by element: any alignment will do
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"K4 {name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"want float32 {shape} on {device}")
+    return t
+
+
 def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
               settings: RenderSettings, frame: int, seed: int = 0, *,
-              stats=None, fault: int = NO_FAULT,
+              direct: bool = False, stats=None, fault: int = NO_FAULT,
               fault_arg: float = 0.0) -> torch.Tensor:
     """Launch K4 on packed tables (``cuda_radiance.pack_camera`` /
-    ``pack_spheres``) on the current stream; returns the records
-    ``[n_slots, N]`` in :func:`layout`'s order.  ``stats`` (an int64
-    [len(STATS)] CUDA tensor) makes the kernel add its work counts to it;
-    ``fault`` plants one of the faults above (``fault_arg``: the uv
-    shift)."""
+    ``pack_spheres``) on the current stream.  Returns the records
+    ``[n_slots, N]`` in :func:`layout`'s order, or with ``direct`` the
+    composed pass, ``[4, N]``: depth, then the rgb mean (what
+    :func:`compose` makes of the records; the kernel fetches the HDRI,
+    texture and MERL values itself).  ``stats`` (an int64 [len(STATS)] CUDA
+    tensor) makes the kernel add its work counts to it; ``fault`` plants one
+    of the faults above (``fault_arg``: the uv shift), those of
+    ``DIRECT_FAULTS`` in direct mode only."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA devices, not {device}")
@@ -372,6 +416,9 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
         raise ValueError(f"K4 spheres table has shape {tuple(sph.shape)}")
     if not supports(scene, settings):
         raise NotImplementedError("K4 does not cover this scene (cuda_mesh.supports)")
+    if (fault in DIRECT_FAULTS) != (direct and fault != NO_FAULT):
+        raise ValueError(f"K4 fault {fault} does not apply to the "
+                         f"{'direct' if direct else 'records'} mode")
     n = settings.n_pixels
     if not 0 < n < 2 ** 31:
         raise ValueError(f"{n} pixels is out of the kernel's range")
@@ -407,8 +454,23 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
         p.tri_uv, p.tri_t = ptr(mesh.tri_uv), ptr(mesh.tri_t)
     if mis:
         p.mis = ptr(mis_tables(scene.brdf))
-    records = torch.empty((n_slots, n), dtype=torch.float32, device=device)
-    p.records = ptr(records)
+    if direct:
+        if defer.env:
+            hdr = scene.hdr
+            hdr = _table("hdr", hdr, device, (hdr.shape[0], hdr.shape[1], 3))
+            p.hdr, p.hdr_h, p.hdr_w = ptr(hdr), hdr.shape[0], hdr.shape[1]
+        if defer.tex:
+            tex = scene.diffuse_map
+            tex = _table("diffuse_map", tex, device, (tex.shape[0], tex.shape[1], 3))
+            p.tex, p.tex_h, p.tex_w = ptr(tex), tex.shape[0], tex.shape[1]
+        if defer.merl:
+            p.brdf = ptr(_table("brdf", scene.brdf, device, (3, TABLE_SIZE)))
+        p.bilinear = int(settings.texture_filter == "bilinear")
+        p.direct = 1
+        out = torch.empty((4, n), dtype=torch.float32, device=device)
+    else:
+        out = torch.empty((n_slots, n), dtype=torch.float32, device=device)
+    p.records = ptr(out)
     if stats is not None:
         _check("stats", stats, device, torch.int64, (len(STATS),))
         p.stats = ptr(stats)
@@ -439,7 +501,7 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError_t {err}")
     launch_k4.count += 1
-    return records
+    return out
 
 
 launch_k4.count = 0
@@ -452,7 +514,9 @@ def compose(records: torch.Tensor, scene: Scene, settings: RenderSettings):
     deferred texture, MERL and HDRI fetches and the ``PD_b`` composition,
     differentiable with respect to ``scene.hdr``, ``scene.diffuse_map`` and
     ``scene.brdf``.  A path misses at most once, so the HDRI is fetched once
-    a sample, at the direction of the bounce whose ``E`` is nonzero."""
+    a sample, at the direction of the bounce whose ``E`` is nonzero.
+    ``.count`` counts calls."""
+    compose.count += 1
     defer = Defer(settings)
     idx, n_slots = layout(settings, defer)
     if records.shape[0] != n_slots:
@@ -516,6 +580,9 @@ def compose(records: torch.Tensor, scene: Scene, settings: RenderSettings):
     return total, depth
 
 
+compose.count = 0
+
+
 # --- the pass ---------------------------------------------------------------
 
 def _refuse_grad(scene: Scene, camera: Camera, fresnel_coef, fresnel_pow):
@@ -537,10 +604,13 @@ def render_pass_mesh(scene: Scene, settings: RenderSettings, camera: Camera,
                      frame: int, fresnel_coef, fresnel_pow, seed: int = 0):
     """One progressive pass through K4: ``(rgb_mean [N,3], depth [N])``.
 
-    CUDA tensors launch K4 (built at first use) and CPU tensors take
-    :func:`records_reference`; then :func:`compose`.  Raises on a scene K4
-    does not cover and on inputs other than the deferred tables that
-    require a gradient.
+    CUDA tensors launch K4 (built at first use) in the pass's
+    :func:`mode`: direct (the kernel's own ``[4, N]``), or the records and
+    then :func:`compose`, whose autograd carries the tables' gradients.  CPU
+    tensors take :func:`records_reference` and :func:`compose` in both modes
+    (the function both compute).  Raises on a scene K4 does not cover and on
+    inputs other than the deferred tables that require a gradient; a failed
+    build or launch raises in either mode.
     """
     device = scene.device
     if device.type not in ("cpu", "cuda"):
@@ -551,13 +621,17 @@ def render_pass_mesh(scene: Scene, settings: RenderSettings, camera: Camera,
     if not supports(scene, settings):
         raise NotImplementedError("K4 does not cover this scene (cuda_mesh.supports)")
     _refuse_grad(scene, camera, fresnel_coef, fresnel_pow)
+    pass_mode = mode(scene)
     if device.type == "cpu":
         records = records_reference(scene, settings, camera, frame,
                                     fresnel_coef, fresnel_pow, seed)
-    else:
-        records = launch_k4(pack_camera(camera, settings, fresnel_coef, fresnel_pow),
-                            pack_spheres(scene.spheres), scene, settings, frame, seed)
-    return compose(records, scene, settings)
+        return compose(records, scene, settings)
+    args = (pack_camera(camera, settings, fresnel_coef, fresnel_pow),
+            pack_spheres(scene.spheres), scene, settings, frame, seed)
+    if pass_mode == RECORDS:
+        return compose(launch_k4(*args), scene, settings)
+    out = launch_k4(*args, direct=True)
+    return out[1:].T, out[0]
 
 
 # --- the contract -----------------------------------------------------------
