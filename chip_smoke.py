@@ -47,13 +47,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sphere with diffuse, normal and specular maps under a 64x128 HDRI, no
    Cornell box, camera at z = 40, loaded through ``Renderer.load_mesh``,
    ``load_texture`` and ``load_hdr`` (the port's host library built with
-   g++ from its own sources).
+   g++ from its own sources); the bytes of the walk's compressed copy
+   (``accel/wide.py::compress_wide``) beside the float layout's.
 13. K3 and K3b against the plain ``traverse`` on the card: the bench's
    traversal view (1024x512 primary rays from z = 28), a bounce-1 wave of
    the render path at 256x256, and the primary and bounce-1 waves of one
    1024x1024 pass; both against ``brute_force`` on a 1.5k-triangle sphere
    with 64x64 rays; K3 against K3b.  Contract: see ``HIT_MISMATCH_FRAC``;
-   planted faults (``planted_traversal_faults``) must break it.
+   planted faults (``planted_traversal_faults``, K3's on a compressed copy
+   rebuilt from faulty records) must break it.
 14. Mesh render path: ``Renderer(1024, 1024)`` on the nm scene, 1 warm-up
    and 10 timed passes; K3's count must rise by ``bounces`` a pass, K3b's
    and the plain ``traverse``'s stay 0; the image is finite and the mesh
@@ -66,7 +68,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    full-width and the compact chain (bit-identical images).
 16. Where the time goes: a ``torch.profiler`` trace of 20 mesh passes.
 17. Bounds of K3 and K3b: node visits, box tests and triangle tests
-   counted by the kernels on one pass's waves (see ``traversal_bound``).
+   counted by the kernels on one pass's waves (see ``traversal_bound``);
+   K3's with the compressed copy's bytes and the operations the work needs
+   (``TRAV_OPS``) and, beside it, with the copy's decode
+   (``TRAV_OPS_DECODE``) and on the float layout the walk read before
+   (``TRAV_OPS_FLOAT``).
 18. The K4 scenes (``k4_renderers``), each through the ``Renderer``'s
    entry points and resolving ``radiance_kernel == "cuda_mesh"``: the
    mesh-megakernel scene of ``bench.py::_mesh_megakernel_bench`` (the nm
@@ -103,14 +109,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    alone in each mode, the pass in each mode (direct: packing + K4;
    records: packing + K4 + ``compose``), ``compose`` alone, the plain
    version and the wavefront pass; K4 alone in each mode on the other
-   scenes of phase 21.
+   scenes of phase 21.  K4 alone is timed over K4_TIMED_LAUNCHES launches
+   a reading, and on config 4 also profiled (device busy time a launch
+   beside the host's wall).
 25. Where the time goes: a ``torch.profiler`` trace of 20 K4 passes of
    the Renderer (direct mode).
-26. K4's bound from the work it counts in each mode (``k4_bound``).
+26. K4's bound from the work it counts in each mode (``k4_bound``), and
+   beside it the same work with the copy's decode and on the float layout
+   the walk read before.
 27. Config 5 (``config5_assets``: ``examples/config5.py::synth_assets``'s
    499,000-triangle UV sphere, 128x256 gradient sky as an array, Lambertian
    MERL ``.binary``): the set-up seconds (page SBVHs, collapse and leaf
-   blocks, top tree and upload), the page count and the device bytes; then
+   blocks, top tree and upload), the page count, the device bytes and the
+   compressed copy's bytes beside the float layout's; then
    ``Renderer(1920, 1080)`` with FXAA, MERL and remat through ``load_hdr``,
    ``load_brdf(path)`` and ``load_mesh`` (which pages the mesh).
 28. Resolution: radiance "wavefront", traversal "cuda_paged" (K5), compact
@@ -138,7 +149,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tests/test_paged_grad_parity.py's policy.
 34. Where the time goes (``torch.profiler`` over 5 passes), times in turns
    (K5 and K3 on the four spec waves, the plain version, the pass) and
-   K5's bound from the work it counts (``paged_bound``).
+   K5's bound from the work it counts (``paged_bound``), with the copy's
+   decode and the float layout's beside it.
 35. The K3 comparison: K3 on the single-level pack against K5 on the same
    four waves: the same triangle and hit/miss on every ray, exactly, which
    K5's gate fault of phase 29 must break; K3's time and bound.
@@ -159,7 +171,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``captured_attrs``, K3c ``bounces`` times a pass and no K3; the captured
    pass against the recompute pass under the outlier contract of
    tests/test_config3_textured_mesh.py; 10 alternating timing pairs of
-   the two passes; K3 and K3c times on the four waves; K3c's bound.
+   the two passes; K3 and K3c times on the four waves; K3c's bound, and
+   beside it with the copy's decode.
 40. BASELINE config 3 from files through ``cli.main(["render", ...])``:
    a 69,452-triangle UV-sphere OBJ (for the 69,451-triangle bunny), 256^2
    diffuse, normal and specular PNGs and a 128x256 PIZ EXR sky written by
@@ -267,15 +280,49 @@ MESH_PASSES, MESH_K3B_PASSES = 10, 3
 HIT_MISMATCH_FRAC = 1e-5
 GEOMETRY_MISMATCH_FRAC = 2e-5
 T_RTOL = 1e-4
-# Operations per unit of traversal work, counted from csrc/traverse.cu (one
-# FP32 add, multiply, min, max or compare each; the IEEE division as one SFU
-# reciprocal and 4 FP32 operations): a box (slab) test is 6 subtractions, 6
-# multiplications, 10 min/max and a compare (23); a triangle test is 27
-# multiplications, 18 additions, 7 compares and the division (56 + 1 SFU);
-# a node visit is ~30 INT32 operations (pop, record and axis loads, push
-# loop) and each tested child 4 more.
-TRAV_OPS = {"fp32_per_box": 23, "fp32_per_tri": 56, "sfu_per_tri": 1,
-            "int32_per_visit": 30, "int32_per_box": 4}
+# Operations per unit of traversal work: the node visits, box tests and
+# triangle tests the kernels count (one FP32 add, multiply, min, max or
+# compare each, a fused multiply-add 2, as the FP32 rate counts it; the
+# IEEE division as one SFU reciprocal and 4 FP32 operations).  Two walks
+# do this work, and each adds operations of its own layout:
+# - TRAV_OPS_DECODE, csrc/traverse.cuh's walk on the compressed copy.  A
+#   node visit decodes the node: three quanta times the reciprocals, and
+#   the origin's three distances less 2^15 quanta (a subtraction, a
+#   multiply and a fused multiply-add each: 15 FP32), and ~51 INT32
+#   operations (pop and cull, the five loads' address, the exponent bytes,
+#   the twelve near/far selects, the leaf and push loops).  A box (slab)
+#   test of a non-empty child is six decoded planes, each a byte permute
+#   (INT32) and a fused multiply-add (12 FP32), 6 min/max, a compare and
+#   the key's max (20 FP32), and ~15 INT32 (the permutes, the meta byte,
+#   the key).
+# - TRAV_OPS_FLOAT, the walk on the float layout it read before the copy,
+#   whose slab test K3b still runs: a box test 6 subtractions, 6
+#   multiplications, 10 min/max and a compare, and 4 INT32; a node visit
+#   ~30 INT32.
+# A triangle test is 27 multiplications, 18 additions, 7 compares and the
+# division (56 + 1 SFU) in both.  The work itself needs no more than the
+# fewer of the two per operation type, TRAV_OPS, which the bounds of the
+# walks on the copy (K3, K3c, K4, K5) count; phases 17, 26, 34 and 39 print
+# beside it the bound with the copy's decode (TRAV_OPS_DECODE), what the
+# layout adds, and the float layout's bound.
+TRAV_OPS_DECODE = {"fp32_per_box": 20, "fp32_per_visit": 15, "fp32_per_tri": 56,
+                   "sfu_per_tri": 1, "int32_per_visit": 51, "int32_per_box": 15}
+TRAV_OPS_FLOAT = {"fp32_per_box": 23, "fp32_per_visit": 0, "fp32_per_tri": 56,
+                  "sfu_per_tri": 1, "int32_per_visit": 30, "int32_per_box": 4}
+TRAV_OPS = {k: min(v, TRAV_OPS_FLOAT[k]) for k, v in TRAV_OPS_DECODE.items()}
+TRAV_TABLES = {"copy": TRAV_OPS, "decode": TRAV_OPS_DECODE, "float": TRAV_OPS_FLOAT}
+
+
+def trav_ops(visits, boxes, tris, layout="copy"):
+    """The operations of a walk's counted work, per type: what the work
+    needs (``layout`` "copy", TRAV_OPS), with the compressed copy's decode
+    ("decode", TRAV_OPS_DECODE), or on the float layout ("float",
+    TRAV_OPS_FLOAT)."""
+    t = TRAV_TABLES[layout]
+    return {"fp32": (boxes * t["fp32_per_box"] + visits * t["fp32_per_visit"]
+                     + tris * t["fp32_per_tri"]),
+            "sfu": tris * t["sfu_per_tri"],
+            "int32": visits * t["int32_per_visit"] + boxes * t["int32_per_box"]}
 
 
 def _compare(name, got, want, depth_outliers=False):
@@ -503,8 +550,12 @@ def planted_traversal_faults(mesh, slot):
     every leaf skipped; the last inner child of every node dropped (the far
     one for rays along the node's sort axis); and, a rare fault, the one
     leaf that holds triangle ``slot`` dropped, so only the rays that would
-    hit that leaf go wrong.  Slots still index the same triangles."""
+    hit that leaf go wrong.  K3 walks the compressed copy, so its copy is
+    built anew from the faulty records (``with_copy``).  Slots still index
+    the same triangles."""
     import dataclasses
+
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import with_copy
 
     name = "nodes8_i" if mesh.nodes8_f is not None else "nodes_i"
     recs = getattr(mesh, name)
@@ -527,29 +578,55 @@ def planted_traversal_faults(mesh, slot):
            int((mesh.tri_pack[:, 9] == slot).nonzero()[0, 0]))
     node, child = ((cnt > 0) & (ref <= row) & (row < ref + cnt)).nonzero()[0]
     dropped[node, child, 1] = -1
-    return {what: dataclasses.replace(mesh, **{name: r.reshape(recs.shape)})
+    rebuild = with_copy if name == "nodes8_i" else (lambda m: m)
+    return {what: rebuild(dataclasses.replace(mesh, **{name: r.reshape(recs.shape)}))
             for what, r in (("last triangle of every leaf skipped", short),
                             ("last inner child of every node dropped", pruned),
                             (f"the leaf of triangle {slot} dropped", dropped))}
 
 
-def mesh_read_bytes(mesh, wide):
+def copy_bytes(nodes8_c, leaf_rows):
+    """Bytes of a compressed copy: 80 a node, 48 a leaf row."""
+    return (nodes8_c.numel() + leaf_rows.numel()) * 4
+
+
+def float_layout_bytes(nodes8_i):
+    """Bytes of the float layout the walk read before the compressed copy,
+    each once: a node's 64-byte record row and 4-byte axis, 24 of a child
+    box row's 32 bytes for each non-empty child, 48 of a leaf-block row's
+    64 bytes for each leaf row."""
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
+
+    cnt = nodes8_i.view(-1, 8, 2)[..., 1]
+    return (cnt.shape[0] * (64 + 4) + 24 * int((cnt >= 0).sum())
+            + 48 * int(cnt.clamp(0, MAX_LEAF).sum()))
+
+
+def wide_array_bytes(tree):
+    """Bytes of the float layout's arrays (``nodes8_f``, ``nodes8_i``,
+    ``nodes8_ax``, ``tri_pack``, padded leaf blocks included) of a
+    ``MeshData`` or ``PagedNodes``."""
+    return sum(getattr(tree, f).numel() * 4
+               for f in ("nodes8_f", "nodes8_i", "nodes8_ax", "tri_pack"))
+
+
+def mesh_read_bytes(mesh, wide, layout="copy"):
     """Bytes of the mesh arrays K3 (``wide``) or K3b reads, each once.  K3:
-    a node's 64-byte record row and 4-byte axis, 24 of a child box row's 32
-    bytes for each non-empty child, 48 of a leaf-block row's 64 bytes for
-    each leaf row.  K3b: a node's 48-byte box row and 16-byte record, and
-    36 bytes (v0, e1, e2) for each leaf slot."""
+    the compressed copy, every node and leaf row (``copy_bytes``), or for
+    ``layout`` "float" the float layout's (``float_layout_bytes``).  K3b: a
+    node's 48-byte box row and 16-byte record, and 36 bytes (v0, e1, e2)
+    for each leaf slot."""
     from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
 
     if wide:
-        cnt = mesh.nodes8_i.view(-1, 8, 2)[..., 1]
-        return (cnt.shape[0] * (64 + 4) + 24 * int((cnt >= 0).sum())
-                + 48 * int(cnt.clamp(0, MAX_LEAF).sum()))
+        if layout == "float":
+            return float_layout_bytes(mesh.nodes8_i)
+        return copy_bytes(mesh.nodes8_c, mesh.leaf_rows)
     cnt = mesh.nodes_i.view(-1, 2, 2)[..., 1]
     return cnt.shape[0] * (48 + 16) + 36 * int(cnt.clamp(0, MAX_LEAF).sum())
 
 
-def traversal_bound(mesh, wide, waves):
+def traversal_bound(mesh, wide, waves, layout="copy"):
     """(bound_ms, bound_by, work, bytes) of K3 (``wide``) or K3b over one
     pass's ``waves``: per wave the larger of the bytes over the memory rate
     and, per operation type, the operations over the card's peak rate,
@@ -558,22 +635,24 @@ def traversal_bound(mesh, wide, waves):
     t_max > 0: a dead lane returns after reading t_max.  The mesh is read
     once a pass (``mesh_read_bytes``, charged to the first wave): it stays
     in L2 between waves.  The work is what the kernel itself counts on
-    these rays."""
+    these rays, its operations what that work needs (TRAV_OPS).  ``layout``
+    "decode": the same with the compressed copy's decode (TRAV_OPS_DECODE);
+    "float": the bytes and operations of the same work on the float layout
+    the walk read before (TRAV_OPS_FLOAT), whose slab test K3b's binary
+    walk shares."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
 
     launch = k3.launch_k3 if wide else k3.launch_k3b
-    mesh_bytes = mesh_read_bytes(mesh, wide)
+    mesh_bytes = mesh_read_bytes(mesh, wide, layout)
+    if not wide:  # K3b's slab test is the float one
+        layout = "float"
     total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0], 0
     for i, (o, d, t) in enumerate(waves):
         stats = torch.zeros(3, dtype=torch.int64, device=o.device)
         launch(mesh, o, d, t, stats=stats)
         visits, boxes, tris = (int(x) for x in stats.tolist())
         work = [a + b for a, b in zip(work, (visits, boxes, tris))]
-        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
-                       + tris * TRAV_OPS["fp32_per_tri"],
-               "sfu": tris * TRAV_OPS["sfu_per_tri"],
-               "int32": visits * TRAV_OPS["int32_per_visit"]
-                        + boxes * TRAV_OPS["int32_per_box"]}
+        ops = trav_ops(visits, boxes, tris, layout)
         t_ops = max(ops[k] / RATES[k] for k in ops)
         wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
                       + (mesh_bytes if i == 0 else 0))
@@ -648,7 +727,11 @@ def mesh_phases(dev, card, rays_per_pass_of):
     binary = mesh.without_wide()
     print(f"nm scene: {mesh.tri_count.item()} triangles, "
           f"{mesh.nodes_i.shape[0]} binary / {mesh.nodes8_i.shape[0]} wide "
-          f"nodes, load_mesh + textures + HDRI {setup_s:.2f} s")
+          f"nodes, load_mesh + textures + HDRI {setup_s:.2f} s; the walk's "
+          f"compressed copy {copy_bytes(mesh.nodes8_c, mesh.leaf_rows)} bytes "
+          f"({mesh.nodes8_c.shape[0]} nodes, {mesh.leaf_rows.shape[0]} leaf "
+          f"rows) against {wide_array_bytes(mesh)} of the float layout "
+          f"({mesh.tri_pack.shape[0]} padded leaf rows)")
 
     # 13. K3 and K3b against the plain traversal and brute_force.
     view = Camera.default(dev).replace(
@@ -793,6 +876,15 @@ def mesh_phases(dev, card, rays_per_pass_of):
               f"bytes {n_bytes} of which mesh {mesh_read_bytes(m, wide)}, "
               f"live rays {[int((w[2] > 0).sum()) for w in main_waves]}), "
               f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound")
+        if wide:
+            d_ms, d_by = traversal_bound(m, wide, main_waves, "decode")[:2]
+            f_ms, f_by, _, f_bytes = traversal_bound(m, wide, main_waves, "float")
+            print(f"  {kname} bound with the copy's decode: {d_ms:.4f} ms "
+                  f"({d_by}, TRAV_OPS_DECODE), {d_ms / k_ms:.1%} of the "
+                  f"measured time; on the float layout it read before: "
+                  f"{f_ms:.4f} ms ({f_by}; bytes {f_bytes} of which mesh "
+                  f"{mesh_read_bytes(m, wide, 'float')}, TRAV_OPS_FLOAT), "
+                  f"{f_ms / k_ms:.1%} of the measured time")
         rows.append({
             "name": f"{kname} {'8-wide' if wide else 'binary'} BVH traversal",
             "route": "cuda",
@@ -807,6 +899,7 @@ def mesh_phases(dev, card, rays_per_pass_of):
             "plain_ms": ms["plain pass (4 waves)"],
             "bound_ms": b_ms,
             "bound_by": by,
+            **({"bound_ms_decode": d_ms} if wide else {}),
             "library_ms": None,
         })
     return rows
@@ -821,6 +914,11 @@ def mesh_phases(dev, card, rays_per_pass_of):
 # sphere with a glossy synthetic table under lobe MIS.
 K4_PASSES = 10
 K4_STEPS = 12
+# Launches a reading where K4 is timed alone (phase 24).  Each launch waits
+# for the card (cuda_mesh.supports reads the sphere table back), so on
+# config 4, where the host's time a launch exceeds the kernel's, CUDA events
+# time the host; the profile after the readings gives the card's time.
+K4_TIMED_LAUNCHES = 200
 CONFIG4 = (1024, 768)
 # Contract of K4 against records_reference on the same inputs.  The two
 # programs round differently (FMA contraction in K4, torch's reduction
@@ -998,7 +1096,7 @@ def k4_contract(a, cornell):
             and all(frac <= limit for frac, _ in a["records"].values()))
 
 
-def k4_bound(r, stats, n_slots, direct=False):
+def k4_bound(r, stats, n_slots, direct=False, layout="copy"):
     """(bound_ms, bound_by, ops, bytes) of one K4 launch on ``r``'s scene
     from the work the kernel counted (``stats``, cuda_mesh.STATS order):
     the larger of the bytes over the memory rate and, per operation type,
@@ -1007,26 +1105,28 @@ def k4_bound(r, stats, n_slots, direct=False):
     records written once (``n_slots`` floats a pixel); in ``direct`` mode
     16 bytes a pixel written (depth and rgb) and the HDRI, diffuse texture
     and MERL table the scene fetches read once, with the fetches' own
-    operations (K4_FETCH_OPS)."""
+    operations (K4_FETCH_OPS).  The mesh walk's bytes are the compressed
+    copy's and its operations what its work needs (``trav_ops``), or for
+    ``layout`` "decode" with the copy's decode, or for "float" the float
+    layout's bytes and operations."""
     visits, boxes, tris, traced, hits, brdf, mis, env, tex = stats
     s, scene = r.settings, r.scene
     spheres = scene.spheres.count + (1 if s.use_example_sphere else 0)
+    walk = trav_ops(visits, boxes, tris, layout)
     ops = {
         "fp32": (traced * spheres * FWD_STEP["fp32_per_sphere"]
                  + hits * K4_OPS["hit_fp32"] + brdf * K4_OPS["brdf_fp32"]
-                 + mis * K4_OPS["mis_fp32"] + boxes * TRAV_OPS["fp32_per_box"]
-                 + tris * TRAV_OPS["fp32_per_tri"]),
+                 + mis * K4_OPS["mis_fp32"] + walk["fp32"]),
         "sfu": (traced * spheres * FWD_STEP["sfu_per_sphere"]
                 + hits * K4_OPS["hit_sfu"] + brdf * K4_OPS["brdf_sfu"]
-                + mis * K4_OPS["mis_sfu"] + tris * TRAV_OPS["sfu_per_tri"]),
+                + mis * K4_OPS["mis_sfu"] + walk["sfu"]),
         "int32": (hits * K4_OPS["hit_int32"] + mis * K4_OPS["mis_int32"]
-                  + visits * TRAV_OPS["int32_per_visit"]
-                  + boxes * TRAV_OPS["int32_per_box"]),
+                  + walk["int32"]),
     }
     n_bytes = 14 * 4 * scene.spheres.count
     if s.has_mesh and not s.use_example_sphere:
         mesh = scene.mesh
-        n_bytes += mesh_read_bytes(mesh, True) + sum(
+        n_bytes += mesh_read_bytes(mesh, True, layout) + sum(
             getattr(mesh, f).numel() * 4 for f in ("tri_e1", "tri_e2", "tri_uv", "tri_t"))
     if direct:
         from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
@@ -1329,11 +1429,12 @@ def k4_phases(dev, card, work_dir, nm_obj):
     # compose), compose alone, the plain version and the wavefront pass.
     # On the other scenes with lobe MIS or the Cornell box, K4 alone in each
     # mode (what its occupancy setting, kMinBlocks in csrc/mesh.cu, trades).
+    n = K4_TIMED_LAUNCHES
     timed = {}
     for name in ("config 4 + MIS", "mesh + MERL + MIS", "Cornell + mesh + texture"):
         a = k4_args(rs[name])
-        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), 10)
-        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
+        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), n)
+        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), n)
     for name in ("mesh-megakernel", "config 4"):
         r = rs[name]
         a = k4_args(r)
@@ -1341,8 +1442,8 @@ def k4_phases(dev, card, work_dir, nm_obj):
         pargs = (r.scene, r.settings, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
         ws = r.settings.replace(radiance_kernel="wavefront")
         assert k4.mode(r.scene) == k4.DIRECT
-        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), 10)
-        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), 10)
+        timed[f"K4 direct {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0, direct=True), n)
+        timed[f"K4 records {name}"] = (lambda a=a: k4.launch_k4(*a, 1, 0), n)
         timed[f"pass direct {name}"] = (lambda p=pargs: k4.render_pass_mesh(*p), 10)
         timed[f"pass records {name}"] = (lambda r=r: k4.compose(
             k4.launch_k4(*k4_args(r), 1, 0), r.scene, r.settings), 10)
@@ -1358,6 +1459,13 @@ def k4_phases(dev, card, work_dir, nm_obj):
     ms = {name: sum(v) / len(v) for name, v in t.items()}
     for name, v in t.items():
         print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    # K4 alone on config 4 under the profiler: the card's busy time a launch
+    # beside the host's wall, which says whether the readings above time the
+    # kernel or its wrapper.
+    for mode in (k4.DIRECT, k4.RECORDS):
+        device_profile(f"K4 {mode} config 4, alone", lambda a=k4_args(rs["config 4"]),
+                       d=mode == k4.DIRECT: k4.launch_k4(*a, 1, 0, direct=d),
+                       K4_TIMED_LAUNCHES, top=3)
 
     # 25. Where the time goes: 20 K4 passes of the mesh-megakernel scene.
     device_profile("K4 render pass (mesh-megakernel)", rs["mesh-megakernel"].render,
@@ -1374,13 +1482,17 @@ def k4_phases(dev, card, work_dir, nm_obj):
             counts = dict(zip(k4.STATS, stats.tolist()))
             b_ms, by, ops, n_bytes = k4_bound(r, stats.tolist(), n_slots,
                                               direct=mode == k4.DIRECT)
-            rows[(name, mode)] = (b_ms, by)
+            d_ms, f_ms = (k4_bound(r, stats.tolist(), n_slots, direct=mode == k4.DIRECT,
+                                   layout=lay)[0] for lay in ("decode", "float"))
+            rows[(name, mode)] = (b_ms, by, d_ms)
             k_ms = ms[f"K4 {mode} {name}"]
             print(f"K4 bound, {name}, {mode} mode: {b_ms:.4f} ms ({by}; {counts}; "
                   f"ops {ops}; bytes {n_bytes}"
                   + (f", records {4 * n_slots * r.settings.n_pixels} written and "
                      "read again by compose" if mode == k4.RECORDS else "")
-                  + f"), measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound, {card}")
+                  + f"), measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound; "
+                  f"with the copy's decode {d_ms:.4f} ms, on the float layout "
+                  f"the walk read before {f_ms:.4f} ms, {card}")
     for name in ("mesh-megakernel", "config 4"):
         print(f"K4 pass, {name}: direct {ms[f'pass direct {name}']:.4f} ms "
               f"(K4 {ms[f'K4 direct {name}']:.4f}), records "
@@ -1406,6 +1518,7 @@ def k4_phases(dev, card, work_dir, nm_obj):
         "plain_ms": ms["plain mesh-megakernel"],
         "bound_ms": rows[("mesh-megakernel", k4.DIRECT)][0],
         "bound_by": rows[("mesh-megakernel", k4.DIRECT)][1],
+        "bound_ms_decode": rows[("mesh-megakernel", k4.DIRECT)][2],
         "bound_ms_records": rows[("mesh-megakernel", k4.RECORDS)][0],
         "bound_ms_config4": rows[("config 4", k4.DIRECT)][0],
         "grad_rel_err": grad_err,
@@ -1495,24 +1608,24 @@ def capture_paged_waves(r):
     return waves
 
 
-def paged_read_bytes(mesh):
+def paged_read_bytes(mesh, layout="copy"):
     """Bytes of the paged arrays K5 reads, each once: as mesh_read_bytes
-    counts K3's, over the top tree and every page's tree."""
-    from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
+    counts K3's, over the top tree and every page's tree (the compressed
+    copy, or for ``layout`` "float" the float layout)."""
+    pg = mesh.paged
+    if layout == "float":
+        return float_layout_bytes(pg.nodes8_i)
+    return copy_bytes(pg.nodes8_c, pg.leaf_rows)
 
-    cnt = mesh.paged.nodes8_i.view(-1, 8, 2)[..., 1]
-    return (cnt.shape[0] * (64 + 4) + 24 * int((cnt >= 0).sum())
-            + 48 * int(cnt.clamp(0, MAX_LEAF).sum()))
 
-
-def paged_bound(mesh, waves):
+def paged_bound(mesh, waves, layout="copy"):
     """(bound_ms, bound_by, work, bytes) of K5 over ``waves``, as
-    ``traversal_bound`` counts K3's: the work K5 counts on these rays (node
-    visits, box tests, triangle tests, pages searched), the rays' bytes, and
-    the paged arrays once."""
+    ``traversal_bound`` counts K3's (``layout`` too): the work K5 counts on
+    these rays (node visits, box tests, triangle tests, pages searched), the
+    rays' bytes, and the paged arrays once."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
 
-    mesh_bytes = paged_read_bytes(mesh)
+    mesh_bytes = paged_read_bytes(mesh, layout)
     total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0, 0], 0
     for i, (o, d, t) in enumerate(waves):
         stats = torch.zeros(4, dtype=torch.int64, device=o.device)
@@ -1520,11 +1633,7 @@ def paged_bound(mesh, waves):
         got = [int(x) for x in stats.tolist()]
         work = [a + b for a, b in zip(work, got)]
         visits, boxes, tris, _ = got
-        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
-                       + tris * TRAV_OPS["fp32_per_tri"],
-               "sfu": tris * TRAV_OPS["sfu_per_tri"],
-               "int32": visits * TRAV_OPS["int32_per_visit"]
-                        + boxes * TRAV_OPS["int32_per_box"]}
+        ops = trav_ops(visits, boxes, tris, layout)
         t_ops = max(ops[k] / RATES[k] for k in ops)
         wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
                       + (mesh_bytes if i == 0 else 0))
@@ -1632,7 +1741,11 @@ def config5_phases(dev, card, work_dir):
           f"{pg.page_tris}, {pg.n_top} top-level and "
           f"{pg.nodes8_i.shape[0] - pg.n_top} page nodes, "
           f"{pg.tri_pack.shape[0]} leaf rows, {dev_bytes / 1e6:.1f} MB on the "
-          f"card; set-up: assets {synth_s:.2f} s, OBJ {load_s:.2f} s, page "
+          f"card; the walk's compressed copy "
+          f"{copy_bytes(pg.nodes8_c, pg.leaf_rows) / 1e6:.2f} MB "
+          f"({pg.nodes8_c.shape[0]} nodes, {pg.leaf_rows.shape[0]} leaf rows) "
+          f"against {wide_array_bytes(pg) / 1e6:.2f} MB of the float layout; "
+          f"set-up: assets {synth_s:.2f} s, OBJ {load_s:.2f} s, page "
           f"SBVHs {seconds['sbvh']:.2f} s, collapse + leaf blocks "
           f"{seconds['collapse']:.2f} s, top tree + upload "
           f"{seconds['upload']:.2f} s")
@@ -1857,6 +1970,14 @@ def config5_phases(dev, card, work_dir):
           f"{[int((wv[2] > 0).sum()) for wv in spec_waves]}), measured "
           f"{ms['K5 pass (4 waves)']:.4f} ms = "
           f"{b_ms / ms['K5 pass (4 waves)']:.1%} of bound, {card}")
+    d_ms, d_by = paged_bound(mesh, spec_waves, "decode")[:2]
+    f_ms, f_by, _, f_bytes = paged_bound(mesh, spec_waves, "float")
+    print(f"  K5 bound with the copy's decode: {d_ms:.4f} ms ({d_by}, "
+          f"TRAV_OPS_DECODE), {d_ms / ms['K5 pass (4 waves)']:.1%} of the "
+          f"measured time; on the float layout it read before: {f_ms:.4f} ms "
+          f"({f_by}; bytes {f_bytes} of which mesh "
+          f"{paged_read_bytes(mesh, 'float')}, TRAV_OPS_FLOAT), "
+          f"{f_ms / ms['K5 pass (4 waves)']:.1%} of the measured time")
 
     # 35. K3 on a single-level pack of the same mesh, the same four waves.
     # The two run the same per-ray search (traverse.cuh) and find the same
@@ -1949,6 +2070,7 @@ def config5_phases(dev, card, work_dir):
         "plain_ms": ms["plain pass (4 waves)"],
         "bound_ms": b_ms,
         "bound_by": by,
+        "bound_ms_decode": d_ms,
         "library_ms": None,
     }, {
         "name": "K6 bf16 elementwise probe",
@@ -1993,13 +2115,13 @@ C3_SPHERE = (12.0, 180, 194)     # 2 * 194 * 179 = 69,452 triangles
 C3_SIZE, C3_PASSES = 512, 8
 
 
-def capture_bound(mesh, waves, fields):
+def capture_bound(mesh, waves, fields, layout="copy"):
     """(bound_ms, bound_by, rows) of K3c over one pass's ``waves``: K3's work
-    (``traversal_bound``) on each wave plus the capture's bytes and
-    operations on its hits, per wave the larger of bytes and operations
-    over the card's rates, summed.  A winning triangle's attribute row is
-    charged once, to the first wave in which it wins; ``rows`` counts
-    them."""
+    (``traversal_bound``, its operations as ``layout`` counts them) on each
+    wave plus the capture's bytes and operations on its hits, per wave the
+    larger of bytes and operations over the card's rates, summed.  A
+    winning triangle's attribute row is charged once, to the first wave in
+    which it wins; ``rows`` counts them."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
 
     mesh_bytes = mesh_read_bytes(mesh, True)
@@ -2014,13 +2136,9 @@ def capture_bound(mesh, waves, fields):
         won[slot[slot >= 0].long()] = True
         hits, rows = int((slot >= 0).sum()), int((won & ~read).sum())
         read |= won
-        ops = {"fp32": boxes * TRAV_OPS["fp32_per_box"]
-                       + tris * TRAV_OPS["fp32_per_tri"]
-                       + hits * CAPTURE_OPS["fp32_per_hit"],
-               "sfu": tris * TRAV_OPS["sfu_per_tri"]
-                      + hits * CAPTURE_OPS["sfu_per_hit"],
-               "int32": visits * TRAV_OPS["int32_per_visit"]
-                        + boxes * TRAV_OPS["int32_per_box"]}
+        ops = trav_ops(visits, boxes, tris, layout)
+        ops["fp32"] += hits * CAPTURE_OPS["fp32_per_hit"]
+        ops["sfu"] += hits * CAPTURE_OPS["sfu_per_hit"]
         t_ops = max(ops[k] / RATES[k] for k in ops)
         n_bytes = (o.shape[0] * (4 + 8 + CAPTURE_RAY_BYTES)
                    + int((t > 0).sum()) * 24 + rows * CAPTURE_ROW_BYTES
@@ -2157,10 +2275,12 @@ def capture_phases(dev, card, nm_obj):
     for name, v in tk.items():
         print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
     b_ms, by, rows = capture_bound(mesh, waves, fields)
+    d_ms = capture_bound(mesh, waves, fields, "decode")[0]
     print(f"K3c bound per pass {b_ms:.4f} ms ({by}; {rows} winning triangles' "
           f"attribute rows), measured "
           f"{ms['K3c pass (4 waves)']:.4f} ms = "
-          f"{b_ms / ms['K3c pass (4 waves)']:.1%} of bound; K3 "
+          f"{b_ms / ms['K3c pass (4 waves)']:.1%} of bound (with the copy's "
+          f"decode {d_ms:.4f} ms); K3 "
           f"{ms['K3 pass (4 waves)']:.4f} ms on the same waves, {card}")
     return {
         "name": "K3c 8-wide BVH traversal with win-time attribute capture",
@@ -2176,6 +2296,7 @@ def capture_phases(dev, card, nm_obj):
         "plain_ms": ms["plain pass (4 waves)"],
         "bound_ms": b_ms,
         "bound_by": by,
+        "bound_ms_decode": d_ms,
         "library_ms": None,
     }
 

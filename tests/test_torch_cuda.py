@@ -13,7 +13,8 @@ elements off by more than 1e-5, and depth within 1e-3.  K2 is held to the
 gradient tolerances of tests/test_pallas_grad.py on that file's
 well-conditioned scene, at a frame where K1 and its plain version agree on
 every rgb element (a flipped branch moves the sums by a whole path).
-K3 and K3b are held to chip_smoke.py's traversal contract against the plain
+K3 (which walks the mesh's compressed copy, ``accel/wide.py``) and K3b
+are held to chip_smoke.py's traversal contract against the plain
 ``traverse`` and ``brute_force``: hit/miss agrees on all but 1e-5 of the
 rays and the winning triangle on all but 2e-5 (none of these 4,096), t to
 rtol 1e-4 where the triangle is the same, and a miss returns t_max.  K3c's
@@ -30,6 +31,8 @@ where the chain moves in both dtypes (float32 rtol 1e-4: the plain chain
 rounds product and sum apart, the kernel fuses them; bf16 bit-equal), and
 its planted no-op kernel must fail that check.
 """
+
+import tempfile
 
 import numpy as np
 import pytest
@@ -424,6 +427,37 @@ def test_k3_and_k3b_agree_and_repeat_bit_identical(meshes):
     assert 0 < visits <= boxes <= 8 * visits and tris > 0
 
 
+def test_k3_walks_the_compressed_copy_alone(meshes):
+    """K3 reads the compressed copy and nothing of the JAX-parity arrays:
+    with those zeroed it returns the same hits, bit for bit; a copy built
+    from records that drop each leaf's last triangle breaks the contract;
+    a mesh without its copy is refused, not walked on another layout."""
+    import dataclasses
+
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import hit_agreement
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import with_copy
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse
+
+    card, _ = meshes
+    o, d, t = _mesh_rays("cuda", seed=11)
+    sound = k3.launch_k3(card, o, d, t)
+    _assert_traversal_contract(card, sound, traverse(card, o, d, t), t)
+    blank = dataclasses.replace(card, **{f: torch.zeros_like(getattr(card, f))
+                                         for f in ("nodes8_f", "nodes8_i",
+                                                   "tri_pack")})
+    again = k3.launch_k3(blank, o, d, t)
+    assert all(torch.equal(a, b) for a, b in zip(sound, again))
+    recs = card.nodes8_i.clone().view(-1, 8, 2)
+    cnt = recs[..., 1]
+    cnt[cnt >= 2] -= 1
+    short = with_copy(dataclasses.replace(card, nodes8_i=recs.view(-1, 16)))
+    a = hit_agreement(card, k3.launch_k3(short, o, d, t), sound, t)
+    assert a["geometry_mismatch"] + a["hit_mismatch"] > 1e-3, a
+    with pytest.raises(NotImplementedError):
+        k3.traverse_cuda(dataclasses.replace(card, nodes8_c=None), o, d, t)
+
+
 def test_k3_refuses_what_it_does_not_take(meshes):
     import dataclasses
 
@@ -778,6 +812,38 @@ def test_k5_planted_faults_break_the_contract(paged_meshes):
         a = hit_agreement(card, k5.launch_k5(card, o, d, t,
                                               fault=k5.FAULTS[name]), want, t)
         assert a["geometry_mismatch"] + a["hit_mismatch"] > 1e-3, (name, a)
+
+
+def test_k5_one_walk_finds_k3s_triangles_and_counts_pages(paged_meshes):
+    """K5 is one walk over the paged tree's compressed copy: it finds the
+    same triangle as K3 on a single-level pack of the same mesh on every
+    ray (chip_smoke.py phase 35 at full size), counts at most one entry a
+    page a ray, and its gate fault (a page root gated on the next entry's
+    distance) breaks that equality."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
+    from vrenderer_pathtracer_tpu_torch.native import load_obj
+    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+
+    card, _ = paged_meshes
+    with tempfile.TemporaryDirectory() as tmp:
+        write_uv_sphere(f"{tmp}/s.obj", 12.0, 40, 40)
+        flat = pack_mesh(load_obj(f"{tmp}/s.obj"), paged=False, device="cuda")
+    o, d, t = _mesh_rays("cuda", seed=12)
+    want = k3.launch_k3(flat, o, d, t)
+    stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+    got = k5.launch_k5(card, o, d, t, stats=stats)
+    a = k3.hit_agreement(flat, want, got, t, want_mesh=card)
+    assert a["hit_mismatch"] == a["geometry_mismatch"] == 0, a
+    visits, boxes, tris, pages = stats.tolist()
+    assert 0 < pages <= card.paged.n_pages * o.shape[0] and pages < visits
+    gate = k5.FAULTS["a page's occlusion skip tests > against the next entry's entry t"]
+    bad = k5.launch_k5(card, o, d, t, fault=gate)
+    a = k3.hit_agreement(flat, want, bad, t, want_mesh=card)
+    assert a["hit_mismatch"] + a["geometry_mismatch"] > 0, a
+    with pytest.raises(ValueError):
+        k5.launch_k5(card, o, d, t, fault=9)
 
 
 def test_k5_nan_rays_leave_others_bit_identical(paged_meshes):

@@ -152,9 +152,9 @@ def test_meshes_fit_the_walks_stack(sphere_obj):
     assert wide_stack_need(wide_depth(paged.nodes8_i.numpy())) <= WIDE_STACK_DEPTH
 
 
-# The K4 launch arguments before this mode existed, and the fields the
-# direct mode adds.
-K4_FIELDS = ["cam", "spheres", "boxes", "recs", "axes", "pack", "tri_e1",
+# The K4 launch arguments before this mode existed (the mesh now as its
+# compressed copy, nodes and rows), and the fields the direct mode adds.
+K4_FIELDS = ["cam", "spheres", "nodes", "rows", "tri_e1",
              "tri_e2", "tri_uv", "tri_t", "mis", "records", "stats",
              "n_spheres", "width", "height", "spp", "bounces", "flags",
              "per_sb", "off_a", "off_e", "off_dir", "off_uv", "off_midx",

@@ -4,7 +4,8 @@ Port of ``vrenderer_pathtracer_tpu/accel/pallas_paged.py::traverse_paged``.
 The kernel is hand-written CUDA C++ in ``csrc/paged.cu``, whose header says
 what it computes and what bounds it on the card.  This module:
 
-* ``supports`` — the layout K5 takes (``scene.PagedNodes``);
+* ``supports`` — the layout K5 takes (``scene.PagedNodes`` with its
+  compressed copy, which K5 walks as one tree);
 * ``traverse_paged_cuda`` — the wrapper, ``(slot [B] int32, t [B])`` with
   slot -1 and t = t_max on a miss.  CPU tensors take the plain version
   (``accel/traverse.py::traverse_paged_reference``); CUDA tensors launch
@@ -23,7 +24,8 @@ import functools
 
 import torch
 
-from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import _check, _rays
+from vrenderer_pathtracer_tpu_torch.accel.cuda_traverse import (
+    _check, _copy_ptrs, _rays, copy_supported)
 from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse_paged_reference
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData
 
@@ -45,7 +47,9 @@ def supports(mesh: MeshData) -> bool:
             and tuple(pg.nodes8_i.shape) == (n, 16)
             and tuple(pg.nodes8_ax.shape) == (n,)
             and pg.tri_pack.dim() == 2 and pg.tri_pack.shape[1] == 16
-            and 0 < pg.n_top <= n)
+            and 0 < pg.n_top <= n
+            and copy_supported(pg.nodes8_c, pg.leaf_rows)
+            and pg.n_top + pg.n_pages <= pg.nodes8_c.shape[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,7 +58,7 @@ def _lib():
 
     lib = build.load("paged")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vpt_traverse_paged.argtypes = ([ptr] * 3 + [i32] * 3 + [ptr] * 3
+    lib.vpt_traverse_paged.argtypes = ([ptr] * 2 + [i32] * 4 + [ptr] * 3
                                        + [i32] + [ptr] * 3 + [i32, ptr])
     lib.vpt_traverse_paged.restype = ctypes.c_int
     return lib
@@ -65,15 +69,12 @@ def launch_k5(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None, fault=0):
     device = mesh.device
     b = _rays(ray_o, ray_d, t_max, device)
     if not supports(mesh):
-        raise ValueError("K5 needs a paged mesh (accel/paged.py)")
+        raise ValueError("K5 needs a paged mesh with its compressed copy "
+                         "(accel/paged.py)")
+    if fault not in (0, *FAULTS.values()):
+        raise ValueError(f"unknown K5 fault {fault}")
     pg = mesh.paged
-    n = pg.nodes8_i.shape[0]
-    for name, dtype, shape in (("nodes8_f", torch.float32, (8 * n, 8)),
-                               ("nodes8_i", torch.int32, (n, 16)),
-                               ("nodes8_ax", torch.int32, (n,)),
-                               ("tri_pack", torch.float32,
-                                tuple(pg.tri_pack.shape))):
-        _check(name, getattr(pg, name), device, dtype, shape, aligned=True)
+    ptrs = _copy_ptrs(pg.nodes8_c, pg.leaf_rows, device)
     if stats is not None:
         _check("stats", stats, device, torch.int64, (4,))
     slot = torch.empty((b,), dtype=torch.int32, device=device)
@@ -82,9 +83,8 @@ def launch_k5(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None, fault=0):
         return slot, t
     with torch.cuda.device(device):
         err = _lib().vpt_traverse_paged(
-            pg.nodes8_f.data_ptr(), pg.nodes8_i.data_ptr(),
-            pg.tri_pack.data_ptr(), pg.n_top, pg.page_tris,
-            mesh.tri_v0.shape[0], ray_o.data_ptr(), ray_d.data_ptr(),
+            *ptrs, pg.n_top, pg.n_pages, pg.page_tris, mesh.tri_v0.shape[0],
+            ray_o.data_ptr(), ray_d.data_ptr(),
             t_max.data_ptr(), b, slot.data_ptr(), t.data_ptr(),
             None if stats is None else stats.data_ptr(),
             int(fault), torch.cuda.current_stream(device).cuda_stream)

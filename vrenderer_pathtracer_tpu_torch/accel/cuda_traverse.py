@@ -3,12 +3,13 @@
 Port of ``vrenderer_pathtracer_tpu/accel/pallas_traverse.py::traverse_packets``
 (with and without ``capture=``).  The kernels are hand-written CUDA C++ in
 ``csrc/traverse.cu``, whose header says what they compute and what bounds
-them on the card: operations and divergence (one thread per ray walking a
-BVH that sits in L2), not memory.
+them on the card: operations, divergence and dependent loads (one thread
+per ray walking a BVH that sits in L2), not memory.
 This module:
 
 * ``supports`` — the layouts the kernels take (the sparse 8-wide layout of
-  ``accel/mesh.py``, or the binary nodes alone);
+  ``accel/mesh.py`` with the kernels' compressed copy of it, which K3 and
+  K3c walk, or the binary nodes alone, which K3b walks);
 * ``traverse_cuda`` — the wrapper, ``(slot [B] int32, t [B])`` with slot -1
   and t = t_max on a miss.  CPU tensors take the plain version
   (``accel/traverse.py::traverse``); CUDA tensors launch K3 when the mesh
@@ -33,6 +34,7 @@ import torch
 
 from vrenderer_pathtracer_tpu_torch.accel.traverse import (
     CAPTURE_WIDTHS, capture_reference, traverse)
+from vrenderer_pathtracer_tpu_torch.accel.wide import CW_WORDS, ROW_WORDS
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData
 
 # K3c's field bits (csrc/traverse.cu) and its planted faults, by what each
@@ -42,9 +44,19 @@ CAPTURE_FAULTS = {"u and v swapped in the interpolation": 1,
                   "the tangent left unnormalised": 2,
                   "the first winner's attributes kept after a closer hit": 3}
 
+def copy_supported(nodes8_c, leaf_rows) -> bool:
+    """Whether a compressed copy (``accel/wide.py::compress_wide``) has the
+    shapes the walk takes: nodes [M,20], leaf rows [R,12]."""
+    return (nodes8_c is not None and leaf_rows is not None
+            and nodes8_c.dim() == 2 and nodes8_c.shape[1] == CW_WORDS
+            and nodes8_c.shape[0] > 0
+            and leaf_rows.dim() == 2 and leaf_rows.shape[1] == ROW_WORDS)
+
+
 def supports(mesh: MeshData) -> bool:
     """The layouts K3/K3b take: the sparse 8-wide tree with its leaf pack
-    ([N*8,8] boxes, [N,16] records, [N] axes, [T8,16] pack), or none."""
+    ([N*8,8] boxes, [N,16] records, [N] axes, [T8,16] pack) and the
+    kernels' compressed copy of it (K3 reads the copy alone), or none."""
     if mesh.paged is not None:
         return False
     if mesh.nodes8_f is None:
@@ -55,7 +67,8 @@ def supports(mesh: MeshData) -> bool:
             and tuple(mesh.nodes8_f.shape) == (8 * n, 8)
             and tuple(mesh.nodes8_i.shape) == (n, 16)
             and tuple(mesh.nodes8_ax.shape) == (n,)
-            and mesh.tri_pack.dim() == 2 and mesh.tri_pack.shape[1] == 16)
+            and mesh.tri_pack.dim() == 2 and mesh.tri_pack.shape[1] == 16
+            and copy_supported(mesh.nodes8_c, mesh.leaf_rows))
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,9 +77,9 @@ def _lib():
 
     lib = build.load("traverse")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.vpt_traverse_wide.argtypes = [ptr] * 6 + [i32] + [ptr] * 4
+    lib.vpt_traverse_wide.argtypes = [ptr] * 5 + [i32] + [ptr] * 4
     lib.vpt_traverse_binary.argtypes = [ptr] * 8 + [i32] + [ptr] * 4
-    lib.vpt_traverse_capture.argtypes = ([ptr] * 6 + [i32] + [ptr] * 8 + [i32]
+    lib.vpt_traverse_capture.argtypes = ([ptr] * 5 + [i32] + [ptr] * 8 + [i32]
                                          + [ptr] * 4 + [i32, ptr])
     for fn in (lib.vpt_traverse_wide, lib.vpt_traverse_binary,
                lib.vpt_traverse_capture):
@@ -83,8 +96,17 @@ def _check(name, t, device, dtype, shape, aligned=False):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"traversal {name} has shape {tuple(t.shape)}, want "
                          f"{tuple(shape)}")
-    if aligned and t.data_ptr() % 16:  # mesh rows are read as float4 / int4
+    if aligned and t.data_ptr() % 16:  # mesh rows are read as 16-byte vectors
         raise ValueError(f"traversal {name} is not 16-byte aligned")
+
+
+def _copy_ptrs(nodes8_c, leaf_rows, device):
+    """The compressed copy's pointers, after checking what the walk reads."""
+    _check("nodes8_c", nodes8_c, device, torch.int32,
+           (nodes8_c.shape[0], CW_WORDS), aligned=True)
+    _check("leaf_rows", leaf_rows, device, torch.float32,
+           (leaf_rows.shape[0], ROW_WORDS), aligned=True)
+    return [nodes8_c.data_ptr(), leaf_rows.data_ptr()]
 
 
 def _rays(ray_o, ray_d, t_max, device):
@@ -155,16 +177,9 @@ def launch_k3(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None, capture=(),
     device = mesh.device
     b = _rays(ray_o, ray_d, t_max, device)
     if mesh.nodes8_f is None or not supports(mesh):
-        raise ValueError("K3 needs the sparse 8-wide layout (accel/mesh.py)")
-    n = mesh.nodes8_i.shape[0]
-    for name, dtype, shape in (("nodes8_f", torch.float32, (8 * n, 8)),
-                               ("nodes8_i", torch.int32, (n, 16)),
-                               ("nodes8_ax", torch.int32, (n,)),
-                               ("tri_pack", torch.float32,
-                                tuple(mesh.tri_pack.shape))):
-        _check(name, getattr(mesh, name), device, dtype, shape, aligned=True)
-    ptrs = [mesh.nodes8_f.data_ptr(), mesh.nodes8_i.data_ptr(),
-            mesh.tri_pack.data_ptr()]
+        raise ValueError("K3 needs the sparse 8-wide layout and its "
+                         "compressed copy (accel/mesh.py)")
+    ptrs = _copy_ptrs(mesh.nodes8_c, mesh.leaf_rows, device)
     if not capture:
         if fault:
             raise ValueError("K3's faults are K3c's: pass capture=")

@@ -6,15 +6,20 @@ are padded with degenerate triangles (zero edges -> zero determinant ->
 never hit) so leaf reads of ``MAX_LEAF`` slots never run out of bounds.
 The 8-wide collapse (``accel/wide.py``) is always built, in the sparse
 layout only: the JAX package's VMEM budgets, lane-dense switch and 20-bit
-record check are TPU artifacts.
+record check are TPU artifacts.  Beside it, every pack holds the kernels'
+compressed copy of the same tree (``nodes8_c``, ``leaf_rows``:
+``accel/wide.py::compress_wide``), which is what the CUDA walk reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from vrenderer_pathtracer_tpu_torch.accel.wide import build_leaf_packs, collapse_bvh8
+from vrenderer_pathtracer_tpu_torch.accel.wide import (
+    build_leaf_packs, collapse_bvh8, compress_wide)
 from vrenderer_pathtracer_tpu_torch.native import FlatBVH, HostMesh, build_sbvh
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData
 
@@ -85,6 +90,16 @@ def binary_depth(nodes_i: np.ndarray) -> int:
     return depth
 
 
+def with_copy(mesh: MeshData) -> MeshData:
+    """``mesh`` with its compressed copy built anew from its 8-wide arrays
+    (``nodes8_f``, ``nodes8_i``, ``tri_pack``), on the mesh's device."""
+    nodes, rows, _ = compress_wide(*(getattr(mesh, f).cpu().numpy() for f in
+                                     ("nodes8_f", "nodes8_i", "tri_pack")))
+    return dataclasses.replace(
+        mesh, nodes8_c=torch.from_numpy(nodes).to(mesh.device),
+        leaf_rows=torch.from_numpy(rows).to(mesh.device))
+
+
 def auto_paged(n_tris: int) -> bool:
     """``pack_mesh``'s automatic rule: page a mesh of more than
     ``PAGED_MIN_TRIS`` triangles."""
@@ -143,6 +158,8 @@ def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
         corners(mesh.uvs).reshape(-1, 6),
         corners(mesh.tangents).reshape(-1, 9))
 
+    nodes8_c, leaf_rows, _ = compress_wide(n8f, n8i, tri_pack)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -160,4 +177,6 @@ def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
         nodes8_i=t(n8i),
         nodes8_ax=t(n8ax),
         tri_pack=t(tri_pack),
+        nodes8_c=t(nodes8_c),
+        leaf_rows=t(leaf_rows),
     )

@@ -12,10 +12,12 @@ The traversal layout is the port's own (``scene.PagedNodes``).  Each
 page's SBVH is collapsed to 8 wide with 8-aligned leaf blocks
 (``accel/wide.py``, the layout K3 walks), and a small 8-wide top-level tree
 groups the Morton-ordered page boxes eight at a time.  All of it shares one
-node space with global refs, so K5 (``accel/cuda_paged.py``) runs K3's
-per-ray search from a page's root, and the plain version walks the whole
-tree as one.  The JAX package's dense lane tiles, one-word 20-bit records
-and 128-lane padding are Mosaic/VMEM artifacts and are not built.
+node space with global refs, and the plain version walks the whole tree as
+one.  So does K5 (``accel/cuda_paged.py``), on the kernels' compressed copy
+of the whole node space (``accel/wide.py::compress_wide``), whose page
+roots are the nodes just past the top tree.  The JAX package's dense lane
+tiles, one-word 20-bit records and 128-lane padding are Mosaic/VMEM
+artifacts and are not built.
 """
 
 from __future__ import annotations
@@ -24,14 +26,11 @@ import numpy as np
 import torch
 
 from vrenderer_pathtracer_tpu_torch.accel.wide import (
-    _EMPTY_BOX, build_leaf_packs, collapse_bvh8)
+    _EMPTY_BOX, build_leaf_packs, collapse_bvh8, compress_wide)
 from vrenderer_pathtracer_tpu_torch.native import HostMesh, build_sbvh
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData, PagedNodes
 
 PAGE_TRIS = 4096  # triangles per page
-# K5's top-level stack (csrc/paged.cu kTopStack): a top tree of d levels
-# needs at most 7 * d + 1 entries, so 64 entries take 9 levels (8^9 pages).
-TOP_STACK_DEPTH = 64
 # Slots are recorded as float32 in the leaf blocks: exact below 2^24.
 MAX_SLOTS = 1 << 24
 
@@ -125,22 +124,30 @@ def _assemble(bbox, pages, page_tris, total_refs, flat, *, device) -> MeshData:
         nodes8_ax.append(n8ax)
         packs.append(pack)
         depth_pages = max(depth_pages, depth8)
-    # The plain version walks the whole tree with the wide stack; K5 walks
-    # the top tree with its own stack and each page with the wide stack.
+    # The plain version and K5 walk the whole tree with the wide stack.
     _check_wide_stack_bound(len(levels) + depth_pages)
-    if 7 * len(levels) + 1 > TOP_STACK_DEPTH:
-        raise ValueError(f"{bbox.shape[0]} pages need a top-level tree of "
-                         f"{len(levels)} levels, past K5's stack")
+    all_f, all_i = np.concatenate(nodes8_f), np.concatenate(nodes8_i)
+    all_pack = np.concatenate(packs)
+    nodes8_c, leaf_rows, order = compress_wide(all_f, all_i, all_pack)
+    # Breadth first, the page roots (one level below the top tree, in page
+    # order) are the copy's nodes [n_top, n_top + pages): K5 counts them.
+    n_pages = bbox.shape[0]
+    if not (np.array_equal(order[:n_top], np.arange(n_top)) and
+            np.array_equal(order[n_top:n_top + n_pages], node_base)):
+        raise AssertionError("the copy's page roots are not the nodes past "
+                             "its top tree")
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
     paged = PagedNodes(
         bbox=t(bbox),
-        nodes8_f=t(np.concatenate(nodes8_f)),
-        nodes8_i=t(np.concatenate(nodes8_i)),
+        nodes8_f=t(all_f),
+        nodes8_i=t(all_i),
         nodes8_ax=t(np.concatenate(nodes8_ax)),
-        tri_pack=t(np.concatenate(packs)),
+        tri_pack=t(all_pack),
+        nodes8_c=t(nodes8_c),
+        leaf_rows=t(leaf_rows),
         n_top=n_top,
         page_tris=page_tris,
     )

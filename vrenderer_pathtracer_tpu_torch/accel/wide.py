@@ -16,6 +16,13 @@ Encoding (``nodes8_i[n] = 8 x (ref, count)``): count 0 -> inner child,
 ``ref`` is a wide-node id; count > 0 -> leaf of ``count`` tri slots at
 ``ref`` (a row of the leaf pack); count < 0 -> empty slot.  Empty slots are
 excluded by count in every consumer, not by their inverted box.
+
+Those arrays are the JAX package's layout, bit for bit: the plain versions
+and K3b's tests read them.  The CUDA walk (K3, K3c, K4, K5) reads a copy of
+the same tree of its own, built from them by :func:`compress_wide`: the
+compressed 8-wide nodes of Ylitie, Karras and Laine ("Efficient Incoherent
+Ray Traversal on GPUs Through Compressed Wide BVHs", HPG 2017), 80 bytes a
+node, and compact leaf rows, 48 bytes a triangle (layout below).
 """
 
 from __future__ import annotations
@@ -306,3 +313,188 @@ def build_leaf_packs(n8i, v0, e1, e2, uvs6, tans9, slot_base=0, nrms9=None):
     nrm_pack = (np.stack(nrm_rows) if nrm_rows
                 else np.zeros((8, 16), np.float32))
     return n8i, tri_pack, aux_pack, nrm_pack
+
+
+# -- The compressed 8-wide copy (the CUDA walk's layout) ----------------------
+#
+# Node: 20 int32 words (80 bytes, five 16-byte loads), little-endian bytes:
+#   0-11   origin p (float32 x, y, z): 1/128 quantum below the lo corner of
+#          the union of the node's non-empty child boxes, rounded down
+#   12-14  exponents E_x, E_y, E_z (bytes): the quantum of axis k is
+#          s_k = 2^(E_k - 127), the float32 whose bit pattern is E_k << 23
+#   15     imask: bit c set where child c is an inner node
+#   16-19  child base (int32): the copy's id of the node's first inner
+#          child; its inner children are the ids base, base + 1, ...
+#   20-23  row base (int32): the first row of the node's leaf triangles;
+#          the leaves' rows follow one another in child order
+#   24-31  meta[c], one byte a child: 0 empty; 0x40 | r an inner child,
+#          child base + r; 0x80 | o a leaf whose rows start at row base + o
+#   32-79  quantised child bounds, one byte a child each, in eight-byte
+#          groups: lo x, lo y, lo z, hi x, hi y, hi z.  Child c's box is
+#          lo_k = p_k + q_lo[k][c] * s_k, hi_k = p_k + q_hi[k][c] * s_k in
+#          float32 (q * s is exact), rounded outward at build time with a
+#          margin of 1/128 quantum: the decoded box always contains the
+#          float box, with room for the 1/512 quantum the walk's one-FMA
+#          plane test may err by on a node within about 2^15 quanta of the
+#          ray's origin (csrc/traverse.cuh).  Farther off, the test errs by
+#          the float slab test's order.  Empty children hold q_lo 255 and
+#          q_hi 0.
+# Leaf row: 12 words (48 bytes, three 16-byte loads): v0, e1, e2 (float32),
+# the slot (int32), 1 on the last row of a leaf and 0 elsewhere, and 0.
+# Leaves are not padded.  Nodes are numbered breadth first from the root
+# (id 0), so a paged tree's page roots, all one level below its top tree,
+# get the ids just past it.
+CW_WORDS = 20
+ROW_WORDS = 12
+META_INNER, META_LEAF = 0x40, 0x80
+_EMPTY_Q = (255, 0)
+MARGIN = 1.0 / 128  # of a quantum, outside each float plane
+
+
+def _bfs_order(ref, cnt):
+    """Old node ids in the copy's order (breadth first from node 0, each
+    node's inner children in child order, so they are contiguous) and the
+    copy's id of each old node's first inner child."""
+    n = ref.shape[0]
+    base = np.zeros(n, np.int64)
+    level, order, nxt = np.zeros(1, np.int64), [np.zeros(1, np.int64)], 1
+    while level.size:
+        inner = cnt[level] == 0
+        kids = ref[level][inner]
+        k = inner.sum(axis=1)
+        base[level] = nxt + np.cumsum(k) - k
+        nxt += kids.size
+        order.append(kids)
+        level = kids
+    order = np.concatenate(order)
+    if np.unique(order).size != order.size:
+        raise ValueError("the 8-wide records are not a tree")
+    return order, base
+
+
+def _quantise(lo, hi, valid):
+    """Origin [M,3], biased exponents [M,3] and child bounds (q_lo, q_hi
+    [M,8,3] uint8) of the child boxes ``lo``/``hi`` [M,8,3] where
+    ``valid``: in exact arithmetic p + q_lo * s <= lo - MARGIN * s and
+    p + q_hi * s >= hi + MARGIN * s."""
+    big = np.float32(np.inf)
+    plo = np.where(valid[..., None], lo, big).min(axis=1)
+    phi = np.where(valid[..., None], hi, -big).max(axis=1)
+    none = ~valid.any(axis=1)
+    plo[none], phi[none] = 0.0, 0.0
+    lo64, hi64 = lo.astype(np.float64), hi.astype(np.float64)
+    # 254 quanta for the extent leave room for the margins and roundings.
+    ext = (phi.astype(np.float64) - plo.astype(np.float64)) / 254.0
+    with np.errstate(divide="ignore"):
+        e = np.where(ext > 0, np.ceil(np.log2(np.where(ext > 0, ext, 1.0))), -126)
+    e = np.clip(e, -126, 127).astype(np.int64)
+    while True:
+        s = ((e + 127).astype(np.uint32) << 23).view(np.float32).astype(np.float64)
+        # The origin: the margin below the lo corner, rounded down to float32.
+        p64 = plo.astype(np.float64) - MARGIN * s
+        p = p64.astype(np.float32)
+        p = np.where(p.astype(np.float64) > p64, np.nextafter(p, -big), p)
+        pe, se = p.astype(np.float64)[:, None, :], s[:, None, :]
+        q_lo = np.floor((lo64 - pe) / se - MARGIN)
+        q_hi = np.ceil((hi64 - pe) / se + MARGIN)
+        over = (valid[..., None] & (q_hi > 255)).any(axis=1)
+        if not over.any():
+            break
+        if (e[over] >= 127).any():
+            raise ValueError("a node's extent overflows the float32 quanta")
+        e[over] += 1
+    if (valid[..., None] & (q_lo < 0)).any():
+        raise AssertionError("a child bound below the node's origin")
+    q_lo = np.where(valid[..., None], q_lo, _EMPTY_Q[0]).astype(np.uint8)
+    q_hi = np.where(valid[..., None], q_hi, _EMPTY_Q[1]).astype(np.uint8)
+    return p, (e + 127).astype(np.uint8), q_lo, q_hi
+
+
+def compress_wide(nodes8_f, nodes8_i, tri_pack):
+    """The compressed copy of an 8-wide tree (layout above) from the
+    JAX-parity arrays: ``nodes8_f`` [N*8,8] child boxes, ``nodes8_i``
+    [N,16] records (root 0) and ``tri_pack`` [T8,16] leaf blocks.
+
+    Returns ``(nodes [M,20] int32, rows [R,12] float32, order [M])``:
+    ``order[m]`` is the ``nodes8_i`` id of the copy's node ``m`` (only the
+    nodes reachable from the root are copied), and ``rows`` holds each
+    leaf's unpadded rows, in the copy's node order and child order."""
+    ref = np.asarray(nodes8_i, np.int64).reshape(-1, 8, 2)[..., 0]
+    cnt = np.asarray(nodes8_i, np.int64).reshape(-1, 8, 2)[..., 1]
+    boxes = np.asarray(nodes8_f, np.float32).reshape(-1, 8, 8)
+    pack = np.asarray(tri_pack, np.float32)
+    order, base = _bfs_order(ref, cnt)
+    ref, cnt, boxes = ref[order], cnt[order], boxes[order]
+    m = order.size
+
+    # Leaf rows: each leaf's count rows, in node order then child order.
+    n_rows = np.where(cnt > 0, cnt, 0).reshape(-1)
+    start = np.cumsum(n_rows) - n_rows
+    row_base = start.reshape(m, 8)[:, 0]
+    offset = start.reshape(m, 8) - row_base[:, None]
+    is_leaf = n_rows > 0
+    lengths = n_rows[is_leaf]
+    first = ref.reshape(-1)[is_leaf]
+    total = int(n_rows.sum())
+    within = np.arange(total) - np.repeat(start[is_leaf], lengths)
+    src = np.repeat(first, lengths) + within
+    rows = np.zeros((total, ROW_WORDS), np.float32)
+    rows[:, 0:9] = pack[src, 0:9]
+    words = rows.view(np.int32)
+    words[:, 9] = pack[src, 9].astype(np.int32)  # float32 slots, exact < 2^24
+    words[start[is_leaf] + lengths - 1, 10] = 1
+
+    # Meta bytes and the kind mask.
+    inner = cnt == 0
+    rank = np.cumsum(inner, axis=1) - inner
+    if (offset[cnt > 0] >= 64).any():
+        raise ValueError("a node's leaves hold more than 64 rows")
+    meta = np.where(inner, META_INNER | rank,
+                    np.where(cnt > 0, META_LEAF | offset, 0)).astype(np.uint8)
+    imask = (inner.astype(np.uint32) << np.arange(8, dtype=np.uint32)).sum(axis=1)
+
+    plo, exps, q_lo, q_hi = _quantise(boxes[..., 0:3], boxes[..., 3:6],
+                                      cnt >= 0)
+    out = np.zeros((m, 4 * CW_WORDS), np.uint8)
+    out[:, 0:12] = plo.view(np.uint8).reshape(m, 12)
+    out[:, 12:15] = exps
+    out[:, 15] = imask.astype(np.uint8)
+    out[:, 16:20] = base[order].astype(np.int32).view(np.uint8).reshape(m, 4)
+    out[:, 20:24] = row_base.astype(np.int32).view(np.uint8).reshape(m, 4)
+    out[:, 24:32] = meta
+    for k in range(3):
+        out[:, 32 + 8 * k:40 + 8 * k] = q_lo[..., k]
+        out[:, 56 + 8 * k:64 + 8 * k] = q_hi[..., k]
+    return out.view(np.int32), rows, order
+
+
+def decode_compressed(nodes):
+    """The plain decode of compressed nodes [M,20] (tests only; the walk
+    decodes in csrc/traverse.cuh): ``kind`` [M,8] (0 empty, 1 inner, 2
+    leaf), ``child`` [M,8] (the inner child's id, else -1), ``row`` [M,8]
+    (the leaf's first row, else -1; its rows run to the one marked last),
+    the decoded boxes ``lo``/``hi`` [M,8,3] float32 (as the walk decodes
+    them), their integer bounds ``q_lo``/``q_hi`` [M,8,3], the ``origin``
+    and quanta ``scale`` [M,3] and ``imask`` [M]."""
+    b = np.ascontiguousarray(nodes, np.int32).view(np.uint8).reshape(-1, 4 * CW_WORDS)
+    m = b.shape[0]
+    p = np.ascontiguousarray(b[:, 0:12]).view(np.float32).reshape(m, 1, 3)
+    s = (b[:, 12:15].astype(np.uint32) << 23).view(np.float32).reshape(m, 1, 3)
+    base = np.ascontiguousarray(b[:, 16:20]).view(np.int32).reshape(m, 1)
+    row_base = np.ascontiguousarray(b[:, 20:24]).view(np.int32).reshape(m, 1)
+    meta = b[:, 24:32].astype(np.int64)
+    kind = np.where(meta & META_LEAF, 2, np.where(meta & META_INNER, 1, 0))
+    q_lo = np.stack([b[:, 32 + 8 * k:40 + 8 * k] for k in range(3)], axis=-1)
+    q_hi = np.stack([b[:, 56 + 8 * k:64 + 8 * k] for k in range(3)], axis=-1)
+    return {
+        "kind": kind,
+        "child": np.where(kind == 1, base + (meta & 7), -1),
+        "row": np.where(kind == 2, row_base + (meta & 63), -1),
+        "lo": p + q_lo.astype(np.float32) * s,
+        "hi": p + q_hi.astype(np.float32) * s,
+        "q_lo": q_lo,
+        "q_hi": q_hi,
+        "origin": p.reshape(m, 3),
+        "scale": s.reshape(m, 3),
+        "imask": b[:, 15].astype(np.int64),
+    }

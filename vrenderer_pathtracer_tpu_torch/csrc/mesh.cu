@@ -48,9 +48,10 @@
 //     so a warp's rays are coherent in two dimensions and walk the same
 //     nodes; the pixel index, the output layout and the threefry keys are
 //     the raster ones;
-//   * the mesh search is K3's own device function (distance-ordered, popped
-//     nodes culled, a short local stack: traverse.cuh), so K4 finds the
-//     same closest hits as K3;
+//   * the mesh search is K3's own device function on the tree's compressed
+//     copy (accel/wide.py: 80-byte nodes, 48-byte unpadded leaf rows;
+//     distance-ordered, popped nodes culled, one local stack: traverse.cuh),
+//     so K4 finds the same closest hits as K3;
 //   * the sphere table in shared memory (common.cuh stage_spheres) and the
 //     lobe-MIS tables (the sampler's mass and CDF, the 91 bin-edge cosines,
 //     the 90 bin solid angles) beside it: the CDF's searchsorted(side=right)
@@ -125,10 +126,8 @@ constexpr float kEnvScale = 2.f;
 struct Params {
   const float* cam;       // [14] pack_camera
   const float* spheres;   // [n_spheres, 14] pack_spheres
-  const float* boxes;     // mesh (K3's 8-wide layout), null without a mesh
-  const int* recs;
-  const int* axes;        // the layout's sort axes; the walk does not read them
-  const float* pack;
+  const uint4* nodes;     // mesh: the compressed 8-wide copy [M, 20 words],
+  const float4* rows;     // its leaf rows [R, 12 words]; null without a mesh
   const float* tri_e1;    // [T, 3] by slot
   const float* tri_e2;    // [T, 3]
   const float* tri_uv;    // [T, 3, 2]
@@ -362,8 +361,12 @@ __device__ __forceinline__ int pixel_of(int width, int height) {
 
 // K4.  kDirect: fetch the tables here and write depth and rgb ([4, N]),
 // else the records; kDFault: a planted fault of the direct mode (0, or
-// kFaultEnvU, kFaultTexV, kFaultMerlScale).
-template <bool kDirect, int kDFault>
+// kFaultEnvU, kFaultTexV, kFaultMerlScale); kMesh: the scene has a mesh
+// (kFlagMesh).  A scene without one runs an instance without the walk:
+// inlined, the walk's node decode shares the path loop's 80 registers, and
+// the spills it moves into the loop slowed scenes that never walk (config
+// 4 by 20-38% on an H100, chip_smoke.py; PERF.md).
+template <bool kDirect, int kDFault, bool kMesh>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params p) {
   extern __shared__ float smem[];  // [kMisFloats] MIS tables, then spheres
   const bool mis = p.flags & kFlagMis;
@@ -381,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
 
   const bool cornell = p.flags & kFlagCornell;
   const bool use_example = p.flags & kFlagExample;
-  const bool has_mesh = p.flags & kFlagMesh;
+  constexpr bool has_mesh = kMesh;
   const bool use_brdf = p.flags & kFlagUseBrdf;
   const bool d_env = p.flags & kFlagEnv;
   const bool d_tex = p.flags & kFlagTex;
@@ -441,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
           }
         } else if (has_mesh) {
           const Ray r = make_ray(o[0], o[1], o[2], d[0], d[1], d[2]);
-          mh = traverse_wide(p.boxes, p.recs, p.pack, r, best_t, work);
+          mh = traverse_wide(p.nodes, p.rows, r, best_t, work);
           if (mh.slot >= 0) {
             best_t = mh.t;
             kind = 3;
@@ -684,8 +687,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
 // cudaErrorInvalidValue (1) for arguments no instance takes.  `params` is a
 // host pointer to the launch's arguments (device pointers and scalars,
 // render/cuda_mesh.py::_Params); it is copied into the launch.  The mode
-// (p.direct) and the direct mode's planted fault (p.fault 5-7) pick the
-// instance.
+// (p.direct), the direct mode's planted fault (p.fault 5-7) and whether
+// the scene has a mesh (kFlagMesh) pick the instance.
 extern "C" int vpt_mesh(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
   const int n = p.width * p.height;
@@ -702,17 +705,27 @@ extern "C" int vpt_mesh(const void* params, void* stream) {
   if (p.direct && p.fault != 0 && !direct_fault) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool mesh = p.flags & kFlagMesh;
+#define VPT_K4(DIRECT, FAULT, PARAMS)                                                  \
+  do {                                                                                 \
+    if (mesh) {                                                                        \
+      mesh_kernel<DIRECT, FAULT, true><<<blocks, kThreads, smem, s>>>(PARAMS);         \
+    } else {                                                                           \
+      mesh_kernel<DIRECT, FAULT, false><<<blocks, kThreads, smem, s>>>(PARAMS);        \
+    }                                                                                  \
+  } while (0)
   if (!p.direct) {
-    mesh_kernel<false, 0><<<blocks, kThreads, smem, s>>>(p);
+    VPT_K4(false, 0, p);
     return static_cast<int>(cudaGetLastError());
   }
   Params q = p;
   q.fault = 0;  // the direct faults are the instances' own
   switch (p.fault) {
-    case kFaultEnvU: mesh_kernel<true, kFaultEnvU><<<blocks, kThreads, smem, s>>>(q); break;
-    case kFaultTexV: mesh_kernel<true, kFaultTexV><<<blocks, kThreads, smem, s>>>(q); break;
-    case kFaultMerlScale: mesh_kernel<true, kFaultMerlScale><<<blocks, kThreads, smem, s>>>(q); break;
-    default: mesh_kernel<true, 0><<<blocks, kThreads, smem, s>>>(q);
+    case kFaultEnvU: VPT_K4(true, kFaultEnvU, q); break;
+    case kFaultTexV: VPT_K4(true, kFaultTexV, q); break;
+    case kFaultMerlScale: VPT_K4(true, kFaultMerlScale, q); break;
+    default: VPT_K4(true, 0, q);
   }
+#undef VPT_K4
   return static_cast<int>(cudaGetLastError());
 }

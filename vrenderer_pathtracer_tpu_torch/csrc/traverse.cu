@@ -6,17 +6,19 @@
 // Both compute, per ray, the closest Möller–Trumbore triangle hit with
 // t < t_max, as (slot int32, t float32): slot -1 and t = t_max on a miss.  A
 // slot indexes the mesh's contiguous leaf-ordered triangle arrays (K3 reads
-// it from column 9 of the leaf block, exact as a float below 2^24).  The
+// it from its leaf row, as an int).  The
 // plain PyTorch version of both is accel/traverse.py::traverse, the JAX
 // package's lockstep binary traversal; the wrapper is
 // accel/cuda_traverse.py::traverse_cuda.
 //
-// What bounds them on the H100: operations, divergence and cache misses, not
-// device memory.  The 28.5k-triangle mesh's BVH and leaf blocks take ~4.7 MB
-// (K3) or ~2 MB (K3b), inside the 50 MB L2, and a ray reads 28 bytes and
-// writes 8; every node visit costs 8 (K3) or 2 (K3b) slab tests and every
-// leaf up to 8 triangle tests, per ray, with neighbouring rays on different
-// paths through the tree.  So the work a ray does is what to cut, and the
+// What bounds them on the H100: operations, divergence and the latency of
+// dependent loads, not device memory.  The 28.5k-triangle mesh's compressed
+// copy takes ~1.8 MB (K3; the JAX-parity nodes and 8-aligned leaf blocks it
+// replaced took ~4.7 MB) or its binary tree ~2 MB (K3b), inside the 50 MB
+// L2, and a ray reads 28 bytes and writes 8; every node visit costs 8 (K3)
+// or 2 (K3b) slab tests and every leaf up to 8 triangle tests, per ray,
+// with neighbouring rays on different paths through the tree.  So the work
+// a ray does, and the loads each step waits for, are what to cut, and the
 // design:
 //   * one thread per ray, all state in registers but the stack, which is in
 //     local memory (K3b: 96 entries, accel/mesh.py STACK_DEPTH; K3: 256
@@ -25,14 +27,19 @@
 //   * the TPU kernel's block-shared stack and any-hit votes, root-exit clamp,
 //     32x32 tile remap, packed 20-bit records and lane-dense layouts are
 //     Mosaic/VMEM workarounds and are gone;
-//   * the BVH and triangle arrays go through the read-only cache (__ldg),
-//     a K3 child box as one float4 + one float2, a leaf-block row as three
-//     float4, a K3b node as three float4 + one int4;
+//   * the BVH and triangle arrays go through the read-only cache (__ldg).
+//     K3 reads the compressed copy (accel/wide.py::compress_wide, after
+//     Ylitie, Karras and Laine, HPG 2017): a node is five 16-byte loads (the
+//     origin, three power-of-two quanta, the kind mask, the child and row
+//     bases, a meta byte and six outward-rounded 8-bit bounds a child),
+//     where the float layout took 24 loads from a 256-byte box row and a
+//     64-byte record row; a leaf row is three float4 of 48 bytes, leaves
+//     unpadded.  A K3b node is three float4 + one int4;
 //   * both walk near to far by slab entry distance: K3 tests a node's hit
 //     leaves nearest first until the nearest left starts past the best hit,
 //     pushes its inner children far to near with their entry distances, and
 //     skips a popped node that a closer hit has put out of reach without
-//     reading its boxes (traverse.cuh traverse_wide); K3b pushes by entry
+//     reading its node (traverse.cuh traverse_wide); K3b pushes by entry
 //     distance as traverse does;
 //   * the closest hit is updated on strict t < best, so the first triangle in
 //     leaf order wins a tie, as in traverse.  K3b tests a leaf as soon as its
@@ -83,10 +90,9 @@ __device__ __forceinline__ void add_work(unsigned long long* stats, const Work& 
   atomicAdd(stats + 2, static_cast<unsigned long long>(w.tris));
 }
 
-// K3: the 8-wide BVH (layout: traverse.cuh traverse_wide).
+// K3: the 8-wide BVH's compressed copy (traverse.cuh traverse_wide).
 __global__ void __launch_bounds__(kThreads)
-traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
-                     const float* __restrict__ pack,
+traverse_wide_kernel(const uint4* __restrict__ nodes, const float4* __restrict__ rows,
                      const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                      const float* __restrict__ t_max, int n,
                      int* __restrict__ slot_out, float* __restrict__ t_out,
@@ -97,7 +103,7 @@ traverse_wide_kernel(const float* __restrict__ boxes, const int* __restrict__ re
   Work w;
   Hit h;
   if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
-    h = traverse_wide(boxes, recs, pack, load_ray(ray_o, ray_d, i), tmax, w);
+    h = traverse_wide(nodes, rows, load_ray(ray_o, ray_d, i), tmax, w);
   } else {
     h.slot = -1;
     h.t = tmax;
@@ -141,8 +147,7 @@ __device__ __forceinline__ void bary3(const float* rows, float w, float u,
 // K3c: K3's walk, then the winner's attributes once per ray.
 template <unsigned kCap, int kFault>
 __global__ void __launch_bounds__(kThreads)
-traverse_capture_kernel(const float* __restrict__ boxes, const int* __restrict__ recs,
-                        const float* __restrict__ pack,
+traverse_capture_kernel(const uint4* __restrict__ nodes, const float4* __restrict__ rows,
                         const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                         const float* __restrict__ t_max, int n,
                         int* __restrict__ slot_out, float* __restrict__ t_out,
@@ -154,8 +159,8 @@ traverse_capture_kernel(const float* __restrict__ boxes, const int* __restrict__
   Work w;
   Hit h;
   if (tmax > 0.f) {  // a dead lane (t_max <= 0, or NaN) returns at once
-    h = traverse_wide<kFault == kFaultStaleAttrs>(boxes, recs, pack,
-                                                  load_ray(ray_o, ray_d, i), tmax, w);
+    h = traverse_wide<kFault == kFaultStaleAttrs ? kWalkStaleAttrs : kWalkSound>(
+        nodes, rows, load_ray(ray_o, ray_d, i), tmax, w);
   } else {
     h.slot = h.attr = -1;
     h.t = tmax;
@@ -294,18 +299,18 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 }  // namespace
 
 // Launch K3 on `stream`; returns cudaGetLastError() (0 on success).  All
-// pointers are device pointers: boxes [N*8,8] f32, records [N,16] i32, pack
-// [T8,16] f32, ray_o/ray_d [n,3] f32, t_max [n] f32, slot [n] i32, t [n]
-// f32; `stats` is null or 3 u64 (visits, box tests, triangle tests) the
-// kernel adds to.
-extern "C" int vpt_traverse_wide(const void* boxes, const void* recs,
-                                 const void* pack, const void* ray_o,
-                                 const void* ray_d, const void* t_max, int n,
-                                 void* slot, void* t, void* stats, void* stream) {
+// pointers are device pointers, 16-byte aligned: nodes [M,20] i32 and rows
+// [R,12] f32 (the compressed copy, accel/wide.py), ray_o/ray_d [n,3] f32,
+// t_max [n] f32, slot [n] i32, t [n] f32; `stats` is null or 3 u64
+// (visits, box tests, triangle tests) the kernel adds to.
+extern "C" int vpt_traverse_wide(const void* nodes, const void* rows,
+                                 const void* ray_o, const void* ray_d,
+                                 const void* t_max, int n, void* slot, void* t,
+                                 void* stats, void* stream) {
   if (n > 0) {
     traverse_wide_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(boxes), static_cast<const int*>(recs),
-        static_cast<const float*>(pack), static_cast<const float*>(ray_o),
+        static_cast<const uint4*>(nodes), static_cast<const float4*>(rows),
+        static_cast<const float*>(ray_o),
         static_cast<const float*>(ray_d), static_cast<const float*>(t_max), n,
         static_cast<int*>(slot), static_cast<float*>(t),
         static_cast<unsigned long long*>(stats));
@@ -321,8 +326,8 @@ extern "C" int vpt_traverse_wide(const void* boxes, const void* recs,
 // picked); `fault` is 0, or a planted fault of the check, with every field
 // picked: 1 u and v swapped, 2 the tangent unnormalised, 3 the first
 // winner's attributes kept.
-extern "C" int vpt_traverse_capture(const void* boxes, const void* recs,
-                                    const void* pack, const void* ray_o,
+extern "C" int vpt_traverse_capture(const void* nodes, const void* rows,
+                                    const void* ray_o,
                                     const void* ray_d, const void* t_max, int n,
                                     void* slot, void* t, void* stats, const void* e1,
                                     const void* e2, const void* uv, const void* tan,
@@ -338,8 +343,8 @@ extern "C" int vpt_traverse_capture(const void* boxes, const void* recs,
   const auto s = static_cast<cudaStream_t>(stream);
 #define VPT_K3C(MASK, FAULT)                                                          \
   traverse_capture_kernel<MASK, FAULT><<<blocks_for(n), kThreads, 0, s>>>(             \
-      static_cast<const float*>(boxes), static_cast<const int*>(recs),                \
-      static_cast<const float*>(pack), static_cast<const float*>(ray_o),              \
+      static_cast<const uint4*>(nodes), static_cast<const float4*>(rows),             \
+      static_cast<const float*>(ray_o),                                               \
       static_cast<const float*>(ray_d), static_cast<const float*>(t_max), n,          \
       static_cast<int*>(slot), static_cast<float*>(t),                                \
       static_cast<unsigned long long*>(stats), a, c)

@@ -3,12 +3,13 @@
 // slab test, the Möller–Trumbore triangle test, the work counters, and the
 // whole per-ray closest-hit search over the 8-wide tree (traverse_wide),
 // which K3 and K3c run for one ray per thread, K4 at every bounce of its
-// path loop and K5 from the root of every page a ray enters.  What bounds
-// that search is the work a ray does (node visits, slab and triangle
-// tests) and the latency of its dependent loads, not device memory: the
-// walk orders children by entry distance and culls what a closer hit has
-// put out of reach, and keeps its stack in the thread's local memory
-// (traverse_wide).
+// path loop and K5 over the whole paged tree.  What bounds that search is
+// the work a ray does (node visits, slab and triangle tests) and the
+// latency of its dependent loads, not device memory: the walk reads the
+// tree's compressed copy (accel/wide.py::compress_wide: an 80-byte node as
+// five 16-byte loads, a 48-byte leaf row as three), orders children by
+// entry distance and culls what a closer hit has put out of reach, and
+// keeps its stack in the thread's local memory (traverse_wide).
 //
 // Numerics: see traverse.cu (no --use_fast_math; the triangle test is left
 // to nvcc's FMA contraction).
@@ -29,9 +30,10 @@ struct Ray {
   float o[3], d[3], inv[3];
 };
 
-// Work counters of one ray: node visits, box (slab) tests, triangle tests.
+// Work counters of one ray: node visits, box (slab) tests, triangle tests,
+// and (K5) the page roots the walk enters.
 struct Work {
-  unsigned visits = 0, boxes = 0, tris = 0;
+  unsigned visits = 0, boxes = 0, tris = 0, pages = 0;
 };
 
 // The closest hit of one search: slot -1 and t = t_max on a miss; (u, v)
@@ -126,35 +128,69 @@ __device__ __forceinline__ float key_t(unsigned key) {
   return __uint_as_float(key & ~15u);
 }
 
-// The closest hit of ray `r` with t < t_max over the 8-wide BVH below node
-// `root`: boxes [N*8, 8] (child c of node w at row w*8+c: lo xyz, hi xyz, 0,
-// 0), records [N, 16] (8 x (ref, count); count 0 inner, > 0 leaf rows of
-// `pack`, < 0 empty), pack [T8, 16] (v0, e1, e2, slot, uv corners).  The
-// layout's per-node sort axes are not read.  A ray with t_max <= 0 (a dead
-// lane), or NaN, returns a miss at once.  `w` counts the work.  K3 and K4
-// search from root 0; K5 (paged.cu) from the root of each page it enters.
+// The compressed copy (accel/wide.py, the layout in full there): a node is
+// five uint4, a leaf row three float4.
+constexpr int kNodeVecs = 5;
+constexpr int kRowVecs = 3;
+
+// Byte c (0..7) of an eight-byte group held in two words, as the float
+// 2^15 + q: 0x47000000 | q << 8 is that float exactly, so one byte permute
+// replaces an int-to-float conversion (a quarter-rate op).  The plane test
+// takes the 2^15 back in its per-node offset (traverse_wide).
+template <int c>
+__device__ __forceinline__ float q_biased(unsigned lo, unsigned hi) {
+  const unsigned w = c < 4 ? lo : hi;
+  return __uint_as_float(__byte_perm(w, 0x47000000u, 0x7504u | ((c & 3) << 4)));
+}
+
+// Byte c of the meta words, c known only at run time.
+__device__ __forceinline__ unsigned meta_of(uint4 b, unsigned c) {
+  return ((c < 4 ? b.z : b.w) >> (8u * (c & 3u))) & 0xffu;
+}
+
+// The walk's planted faults, template arguments, so the kernels' own
+// instances (kWalkSound) hold none of them.  kWalkStaleAttrs is K3c's check
+// (chip_smoke.py): (u, v, attr) keep the first winner's after a closer hit.
+// K5's (csrc/paged.cu): kWalkSkipFirstPage skips the first page root the
+// walk would enter; kWalkNextEntryGate gates each page root on the entry
+// distance of the next entry on the stack with `>` (+inf when none is
+// left), in place of its own with `>=`.
+enum WalkFault { kWalkSound = 0, kWalkStaleAttrs, kWalkSkipFirstPage, kWalkNextEntryGate };
+
+// The closest hit of ray `r` with t < t_max over the compressed 8-wide tree
+// `nodes` (root 0) with leaf rows `rows`.  A ray with t_max <= 0 (a dead
+// lane), or NaN, returns a miss at once.  `w` counts the work; with kPages
+// (K5) a node in [page_lo, page_hi), a page root, counts as a page entered.
 //
 // A popped node whose entry distance is at or beyond the best hit so far is
-// skipped before its boxes are read.  Otherwise its eight slab tests come
-// first; then its hit leaves, nearest first by entry distance, through one
-// copy of the triangle test, until the nearest left is entered at or past
-// the best hit; then its hit inner children that the ray enters before the
-// best hit, pushed far to near with their entry distances, so the nearest
-// pops first.  The closest hit is updated on strict t < best, so within a
-// leaf the first triangle wins a tie.  kStaleAttrs plants a fault for K3c's
-// check (chip_smoke.py): (u, v, attr) keep the first winner's after a
-// closer hit.
-template <bool kStaleAttrs = false>
-__device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
-                                             const int* __restrict__ recs,
-                                             const float* __restrict__ pack,
+// skipped before its node is read.  Otherwise its five 16-byte loads come
+// first, then the per-node decode (the quantum times the reciprocal, the
+// origin's distance less 2^15 quanta, the near and far planes picked by the
+// ray's signs), then eight decoded slab tests, a byte permute and one fused
+// multiply-add a plane: t = (2^15 + q) * s / d + ((p - o) / d - 2^15 s / d).
+// The offset is rounded on the scale of ulp(|p - o| / |d|): for a node
+// within about 2^15 quanta of the ray's origin that is at most 1/512 of a
+// quantum of t, inside the copy's margin of 1/128 quantum (accel/wide.py);
+// for a small node far from the origin it can pass the margin, and the
+// test then errs by the float slab test's order, which rounds (p - o) / d
+// too.  Then its hit leaves, nearest first
+// by entry distance, through one copy of the triangle test, until the
+// nearest left is entered at or past the best hit; then its hit inner
+// children that the ray enters before the best hit, pushed far to near
+// with their entry distances, so the nearest pops first.  The closest hit
+// is updated on strict t < best, so within a leaf the first triangle wins
+// a tie.
+template <int kFault = kWalkSound, bool kPages = false>
+__device__ __forceinline__ Hit traverse_wide(const uint4* __restrict__ nodes,
+                                             const float4* __restrict__ rows,
                                              const Ray& r, float t_max, Work& w,
-                                             int root = 0) {
+                                             int page_lo = 0, int page_hi = 0) {
   Hit h;
   h.slot = h.attr = -1;
   h.t = t_max;
   h.u = h.v = 0.f;
   if (!(t_max > 0.f)) return h;
+  const bool neg_x = r.inv[0] < 0.f, neg_y = r.inv[1] < 0.f, neg_z = r.inv[2] < 0.f;
   // The stack: kWideStack entries in local memory, the thread's own array.
   // Local memory is interleaved by thread, so a warp's accesses at one depth
   // coalesce; a thread touches only the entries its walk reaches (the nm
@@ -164,30 +200,68 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
   // [entry][thread], made K3 more than 2x slower on the nm waves (PERF.md
   // §6).
   Entry stack[kWideStack];
-  stack[0] = Entry{root, 0.f};
+  stack[0] = Entry{0, 0.f};
   int sp = 1;
+  bool skipped = false;
   while (sp > 0) {
     const Entry e = stack[--sp];
-    if (e.t >= h.t) continue;  // a closer hit has put the node out of reach
-    ++w.visits;
-    const float* bx = boxes + 64 * e.node;
-    const int2* rec = reinterpret_cast<const int2*>(recs) + 8 * e.node;
-    unsigned leaf[8], inner[8];  // keys of the hit children; ~0u and 0 where none
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      leaf[c] = ~0u;
-      inner[c] = 0u;
-      const int cnt = __ldg(&rec[c].y);
-      if (cnt < 0) continue;
-      ++w.boxes;
-      const float4 a = __ldg(reinterpret_cast<const float4*>(bx + 8 * c));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(bx + 8 * c + 4));
-      float tn;
-      if (slab(r, a.x, a.y, a.z, a.w, b.x, b.y, h.t, tn)) {
-        const unsigned key = child_key(tn, c);
-        if (cnt == 0) inner[c] = key; else leaf[c] = key;
+    if (kPages && e.node >= page_lo && e.node < page_hi) {
+      if (kFault == kWalkNextEntryGate) {
+        if ((sp > 0 ? stack[sp - 1].t : __int_as_float(0x7f800000)) > h.t) continue;
+      } else if (e.t >= h.t) {
+        continue;
       }
+      if (kFault == kWalkSkipFirstPage && !skipped) {
+        skipped = true;
+        continue;
+      }
+      ++w.pages;
+    } else if (e.t >= h.t) {
+      continue;  // a closer hit has put the node out of reach
     }
+    ++w.visits;
+    const uint4* nd = nodes + kNodeVecs * e.node;
+    const uint4 a = __ldg(nd), b = __ldg(nd + 1);
+    const uint4 q0 = __ldg(nd + 2), q1 = __ldg(nd + 3), q2 = __ldg(nd + 4);
+    // a: origin x, y, z and (E_x, E_y, E_z, imask); b: child base, row base,
+    // meta[0..3], meta[4..7]; q0: lo x, lo y; q1: lo z, hi x; q2: hi y, hi z.
+    const float sx = __uint_as_float((a.w & 0xffu) << 23) * r.inv[0];
+    const float sy = __uint_as_float(((a.w >> 8) & 0xffu) << 23) * r.inv[1];
+    const float sz = __uint_as_float(((a.w >> 16) & 0xffu) << 23) * r.inv[2];
+    const float ox = fmaf(-32768.f, sx, (__uint_as_float(a.x) - r.o[0]) * r.inv[0]);
+    const float oy = fmaf(-32768.f, sy, (__uint_as_float(a.y) - r.o[1]) * r.inv[1]);
+    const float oz = fmaf(-32768.f, sz, (__uint_as_float(a.z) - r.o[2]) * r.inv[2]);
+    // The near plane of an axis is its lo where the ray's direction is
+    // positive, its hi where negative.
+    const unsigned nx0 = neg_x ? q1.z : q0.x, nx1 = neg_x ? q1.w : q0.y;
+    const unsigned fx0 = neg_x ? q0.x : q1.z, fx1 = neg_x ? q0.y : q1.w;
+    const unsigned ny0 = neg_y ? q2.x : q0.z, ny1 = neg_y ? q2.y : q0.w;
+    const unsigned fy0 = neg_y ? q0.z : q2.x, fy1 = neg_y ? q0.w : q2.y;
+    const unsigned nz0 = neg_z ? q2.z : q1.x, nz1 = neg_z ? q2.w : q1.y;
+    const unsigned fz0 = neg_z ? q1.x : q2.z, fz1 = neg_z ? q1.y : q2.w;
+    const unsigned imask = a.w >> 24;
+    unsigned leaf[8], inner[8];  // keys of the hit children; ~0u and 0 where none
+#define VPT_CHILD(c)                                                            \
+    {                                                                           \
+      leaf[c] = ~0u;                                                            \
+      inner[c] = 0u;                                                            \
+      if ((c < 4 ? b.z : b.w) >> (8 * (c & 3)) & 0xffu) {                      \
+        ++w.boxes;                                                              \
+        const float tn = fmaxf(fmaxf(fmaf(q_biased<c>(nx0, nx1), sx, ox),        \
+                                     fmaf(q_biased<c>(ny0, ny1), sy, oy)),       \
+                               fmaxf(fmaf(q_biased<c>(nz0, nz1), sz, oz), 0.f)); \
+        const float tf = fminf(fminf(fmaf(q_biased<c>(fx0, fx1), sx, ox),        \
+                                     fmaf(q_biased<c>(fy0, fy1), sy, oy)),       \
+                               fminf(fmaf(q_biased<c>(fz0, fz1), sz, oz), h.t)); \
+        if (tn <= tf) {                                                         \
+          const unsigned key = child_key(tn, c);                                \
+          if (imask & (1u << c)) inner[c] = key; else leaf[c] = key;            \
+        }                                                                       \
+      }                                                                         \
+    }
+    VPT_CHILD(0) VPT_CHILD(1) VPT_CHILD(2) VPT_CHILD(3)
+    VPT_CHILD(4) VPT_CHILD(5) VPT_CHILD(6) VPT_CHILD(7)
+#undef VPT_CHILD
     // The hit leaves, nearest first, through one copy of the triangle test.
 #pragma unroll 1
     while (true) {
@@ -197,10 +271,10 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
       if (k == ~0u || key_t(k) >= h.t) break;  // none left that can be closer
 #pragma unroll
       for (int c = 0; c < 8; ++c) leaf[c] = leaf[c] == k ? ~0u : leaf[c];
-      const int2 rc = __ldg(rec + (k & 7u));  // (ref, count)
-      const int cnt = min(rc.y, kMaxLeaf);
-      for (int j = 0; j < cnt; ++j) {
-        const float4* row = reinterpret_cast<const float4*>(pack) + 4 * (rc.x + j);
+      // The leaf's rows, unpadded, until the one marked last.
+      const float4* row = rows + kRowVecs * (b.y + (meta_of(b, k & 7u) & 63u));
+#pragma unroll 1
+      for (int j = 0; j < kMaxLeaf; ++j, row += kRowVecs) {
         const float4 p0 = __ldg(row), p1 = __ldg(row + 1), p2 = __ldg(row + 2);
         const float v0[3] = {p0.x, p0.y, p0.z};
         const float e1[3] = {p0.w, p1.x, p1.y};
@@ -209,13 +283,14 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
         float t, u, v;
         if (moller_trumbore(r, v0, e1, e2, t, u, v) && t < h.t) {
           h.t = t;
-          h.slot = __float2int_rn(p2.y);
-          if (!kStaleAttrs || h.attr < 0) {
+          h.slot = __float_as_int(p2.y);
+          if (kFault != kWalkStaleAttrs || h.attr < 0) {
             h.u = u;
             h.v = v;
             h.attr = h.slot;
           }
         }
+        if (__float_as_int(p2.z) != 0) break;
       }
     }
     // The inner children, farthest first, so the nearest pops first.
@@ -228,7 +303,9 @@ __device__ __forceinline__ Hit traverse_wide(const float* __restrict__ boxes,
 #pragma unroll
       for (int c = 0; c < 8; ++c) inner[c] = inner[c] == k ? 0u : inner[c];
       // accel/mesh.py checks at pack time that the tree's need fits.
-      if (key_t(k) < h.t && sp < kWideStack) stack[sp++] = Entry{__ldg(&rec[k & 7u].x), key_t(k)};
+      if (key_t(k) < h.t && sp < kWideStack) {
+        stack[sp++] = Entry{static_cast<int>(b.x + (meta_of(b, k & 7u) & 7u)), key_t(k)};
+      }
     }
   }
   return h;

@@ -50,6 +50,7 @@ import weakref
 import torch
 
 from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse
+from vrenderer_pathtracer_tpu_torch.accel.wide import CW_WORDS, ROW_WORDS
 from vrenderer_pathtracer_tpu_torch.accel.traverse import (
     _moller_trumbore, shade_mesh_hit, traverse)
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
@@ -300,7 +301,7 @@ class _Params(ctypes.Structure):
     field)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "cam", "spheres", "boxes", "recs", "axes", "pack", "tri_e1",
+        "cam", "spheres", "nodes", "rows", "tri_e1",
         "tri_e2", "tri_uv", "tri_t", "mis", "records", "stats")] + [
         (name, ctypes.c_int) for name in (
             "n_spheres", "width", "height", "spp", "bounces", "flags",
@@ -436,21 +437,21 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
     p.cam, p.spheres, p.n_spheres = ptr(cam), ptr(sph), sph.shape[0]
     if has_mesh:
         mesh = scene.mesh
-        nn = mesh.nodes8_i.shape[0]
+        if mesh.nodes8_c is None or mesh.leaf_rows is None:
+            raise ValueError("K4 walks the mesh's compressed copy "
+                             "(accel/mesh.py builds it), which it lacks")
         r = mesh.tri_v0.shape[0]
-        for name, dtype, shape in (("nodes8_f", torch.float32, (8 * nn, 8)),
-                                   ("nodes8_i", torch.int32, (nn, 16)),
-                                   ("nodes8_ax", torch.int32, (nn,)),
-                                   ("tri_pack", torch.float32, None),
+        for name, dtype, shape in (("nodes8_c", torch.int32,
+                                    (mesh.nodes8_c.shape[0], CW_WORDS)),
+                                   ("leaf_rows", torch.float32,
+                                    (mesh.leaf_rows.shape[0], ROW_WORDS)),
                                    ("tri_e1", torch.float32, (r, 3)),
                                    ("tri_e2", torch.float32, (r, 3)),
                                    ("tri_uv", torch.float32, (r, 3, 2)),
                                    ("tri_t", torch.float32, (r, 3, 3))):
             _check(name, getattr(mesh, name), device, dtype, shape)
-        p.boxes, p.recs, p.axes = (ptr(mesh.nodes8_f), ptr(mesh.nodes8_i),
-                                   ptr(mesh.nodes8_ax))
-        p.pack, p.tri_e1, p.tri_e2 = (ptr(mesh.tri_pack), ptr(mesh.tri_e1),
-                                      ptr(mesh.tri_e2))
+        p.nodes, p.rows = ptr(mesh.nodes8_c), ptr(mesh.leaf_rows)
+        p.tri_e1, p.tri_e2 = ptr(mesh.tri_e1), ptr(mesh.tri_e2)
         p.tri_uv, p.tri_t = ptr(mesh.tri_uv), ptr(mesh.tri_t)
     if mis:
         p.mis = ptr(mis_tables(scene.brdf))

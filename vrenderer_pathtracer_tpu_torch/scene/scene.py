@@ -33,9 +33,11 @@ class PagedNodes:
     inner children of index ``>= n_top`` are the page roots;
     every ref is global, and leaf rows of ``tri_pack`` record global slots
     (``page * page_tris + local``), so the shading arrays of ``MeshData``
-    are the JAX package's flat page-blocked slot arrays.  K5
-    (``accel/cuda_paged.py``) walks the top tree and runs K3's per-ray
-    search inside each page; the plain version walks the whole tree.
+    are the JAX package's flat page-blocked slot arrays.  The plain
+    version walks the whole tree.  K5 (``accel/cuda_paged.py``) walks it as
+    one tree too, on the compressed copy (``nodes8_c``, ``leaf_rows``:
+    ``accel/wide.py::compress_wide``, over the top tree and every page),
+    in which the page roots are the nodes ``[n_top, n_top + n_pages)``.
     """
 
     bbox: torch.Tensor        # [P,8] float32 page box: lo xyz, hi xyz, 0, 0
@@ -43,6 +45,8 @@ class PagedNodes:
     nodes8_i: torch.Tensor    # [N,16] 8 x (ref, count), global refs
     nodes8_ax: torch.Tensor   # [N] build-time sort axis
     tri_pack: torch.Tensor    # [T8,16] (v0, e1, e2, global slot, uv corners)
+    nodes8_c: torch.Tensor    # [M,20] int32 compressed nodes (the kernels' copy)
+    leaf_rows: torch.Tensor   # [R,12] compact leaf rows (v0, e1, e2, slot, last)
     n_top: int                # nodes of the top-level tree
     page_tris: int            # slots per page
 
@@ -69,7 +73,10 @@ class MeshData:
     The 8-wide collapse of the same tree (``nodes8_*``, ``tri_*pack``) is
     what K3 traverses; without it (``nodes8_f`` None) the card runs K3b on
     the binary nodes.  Only the sparse layout exists here: ``nodes8_f``
-    [N*8,8], ``tri_pack`` [T8,16].
+    [N*8,8], ``tri_pack`` [T8,16].  Those are the JAX package's arrays; the
+    CUDA walk (K3, K3c, K4) reads its own compressed copy of the same tree,
+    built beside them at pack time (``nodes8_c``, ``leaf_rows``:
+    ``accel/wide.py::compress_wide``).
 
     A paged mesh (``paged`` set, ``accel/paged.py``) carries its trees in
     :class:`PagedNodes`; its ``nodes_f``/``nodes_i`` are one empty binary
@@ -91,6 +98,8 @@ class MeshData:
     nodes8_i: Optional[torch.Tensor] = None    # [N,16] 8 x (ref,count)
     nodes8_ax: Optional[torch.Tensor] = None   # [N] build-time sort axis
     tri_pack: Optional[torch.Tensor] = None      # [T8,16] (v0,e1,e2,slot,uv corners)
+    nodes8_c: Optional[torch.Tensor] = None    # [M,20] int32 compressed nodes
+    leaf_rows: Optional[torch.Tensor] = None   # [R,12] compact leaf rows
 
     def __post_init__(self):
         if self.paged is not None and not isinstance(self.paged, PagedNodes):
@@ -112,7 +121,8 @@ class MeshData:
         """The same mesh with the 8-wide tree dropped: the card traverses
         it with K3b (the binary kernel)."""
         return dataclasses.replace(self, nodes8_f=None, nodes8_i=None,
-                                   nodes8_ax=None, tri_pack=None)
+                                   nodes8_ax=None, tri_pack=None,
+                                   nodes8_c=None, leaf_rows=None)
 
 
 @dataclasses.dataclass(frozen=True)
