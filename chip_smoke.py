@@ -8,41 +8,59 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3,
    K3b and K3c (``csrc/traverse.cu``), K4 (``csrc/mesh.cu``), K5 (``csrc/paged.cu``)
    and K6 (``csrc/probe.cu``) of
-   ``vrenderer_pathtracer_tpu_torch`` from the sources, one ``nvcc`` each,
-   started together; print the seconds and ptxas' report (registers,
-   spills and stack frame of every kernel instance: K4's direct and
-   records modes and its direct-fault instances among them).
+   ``vrenderer_pathtracer_tpu_torch`` from the sources, and K1's check
+   build twice, with and without FMA contraction (``K1_CHECK``,
+   ``K1_CHECK_NOFMA``: the shipped instance, the exact cuts alone, the
+   parent design and a planted fault), one ``nvcc`` each, started
+   together; print the seconds, ptxas' report (registers, spills and stack
+   frame of every kernel instance: K2's with and without the camera and
+   its fault, K4's direct and records modes and its direct-fault instances
+   among them) and the SASS instruction count of every K1 and K2
+   instance.
 3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
-   ``Renderer`` on the CPU at 64x32.
+   ``Renderer`` on the CPU at 64x32.  Cuts (a) and (b) of
+   ``csrc/common.cuh`` (``k1_cut_checks``): in the contraction-free check
+   build, K1's exact cuts give the parent design's image and depth bit for
+   bit on four scenes and the planted fault (cut (a) taken on Fresnel
+   surfaces too) does not; with contraction (as K1 ships) the elements
+   apart are counted and held under ``CUT_FMA_APART_FRAC``; on a scene with
+   specular walls the shipped kernel holds the contract and the fault
+   breaks it.
 4. Render path: ``Renderer(1024, 1024)`` on the card for 1 warm-up and 10
    timed passes; K1's launch count must rise by one per pass; the image must
    be finite and of plausible Cornell brightness.
 5. K1 times per pass at 1024x1024 from CUDA events: K1 alone, its wrapper
-   (table packing + K1) and the plain version.
+   (table packing + K1) and the plain version; then, in turns, K1 against
+   the check build's parent design and exact cuts alone (the same flags).
 6. K2 vs plain on a well-conditioned scene (the rows of
    tests/test_pallas_grad.py::_benign_scene) at 64x32, 2 spp, 4 bounces, at
    the first frame where K1 and its plain version agree on every rgb
    element to 1e-5: material gradients at two slider pairs and camera
-   gradients, at the tolerances of tests/test_pallas_grad.py.
+   gradients, at the tolerances of tests/test_pallas_grad.py; at 3 spp x 5
+   bounces against plain.
 7. K2 at 1024x1024 on the Cornell scene: K2's loss against the L2 loss of
    K1's own image, and against the plain version's within the difference
    of the two images' losses; each gradient leaf's relative error, and the
    gradient norm's, against the plain version, under a limit that planted
    faults (wrong rows, swapped leaves, a flipped sign, a dropped Fresnel
-   term) must exceed; two launches on the same inputs bit-identical.
+   term, and the kernel's own: channel 1's unit-g sums scaled by channel
+   0's g) must exceed; two launches on the same inputs bit-identical.
 8. Training path: ``opt_step`` with Adam (lr 0.1) on the sphere emission
    for 12 steps at 1024x1024 towards a K1 image with the light 1.5x
    brighter; K2's launch count must rise by one per step, the plain
    integrator must never run, and the loss must halve.
-9. K2 times per loss + gradient step at 1024x1024 from CUDA events: K2
-   alone, the ``cornell_loss`` wrapper (packing + K2 + backward) and the
-   plain autograd version; ``train_step``'s wall time on the host clock.
+9. K2 times per loss + gradient step at 1024x1024 from CUDA events, in
+   turns: K2 alone, its with_camera instance, the
+   ``cornell_loss`` wrapper (packing + K2 + backward) and the plain
+   autograd version; ``train_step``'s wall time on the host clock.
 10. Where the time goes: a ``torch.profiler`` trace of 20 render passes
    and 20 ``train_step`` calls (device busy time, idle share, top kernels).
 11. Bounds: the least time the card could take for each kernel's work on
-   this run's inputs (see ``bound``).
+   this run's inputs (``cornell_work``, ``cornell_ops``, ``bound``): per
+   pipe and by instruction issue (``issue_s``), beside the parent design's
+   work.
 12. The nm scene (``bench.py::_nm_wavefront_bench``): a 28.5k-triangle UV
    sphere with diffuse, normal and specular maps under a 64x128 HDRI, no
    Cornell box, camera at z = 40, loaded through ``Renderer.load_mesh``,
@@ -184,7 +202,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against the CPU at 32x32.
 
 The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
-one JSON object and then
+one JSON object, every row with its per-pipe and issue bounds, and then
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -242,21 +260,95 @@ BENIGN = [
 # TFLOP/s (an FMA is 2 flops; NVIDIA's data sheet), and 64 INT32 and 16 SFU
 # (sqrt/rcp/lg2/ex2, int-to-float) results per clock per SM on 132 SMs (the
 # CUDA C++ Programming Guide's throughput table, compute capability 9.0);
-# device memory 3.35 TB/s.
+# device memory 3.35 TB/s.  The per-pipe bound takes the busiest pipe's
+# time, as if the pipes issued at once, and counts FP32 work in flops (an
+# FMA as 2), as FP32 rates are quoted.  One scheduler issues one warp
+# instruction a clock, so the issue bound (ISSUE_RATE, 132 SMs x 4
+# schedulers x 32 lanes) takes the sum of the counted instructions: every
+# table of operations below also counts, under "fma", how many pairs of
+# its FP32 flops fuse into one FMA instruction, at the most the source
+# lets fuse (an FMA written, or a multiply whose only use is an add; an
+# IEEE reciprocal's or division's 4 refinement flops are 2 FMAs, an IEEE
+# square root's 6 flops 2 FMAs and 2 multiplies), so that the count of
+# instructions, and the bound, stay as low as the work allows.
 RATES = {"fp32": 67e12, "int32": 132 * 64 * 1.98e9, "sfu": 132 * 16 * 1.98e9}
+ISSUE_RATE = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
-# Operations per live (sample, bounce) step, counted from the sources: the
-# forward step of csrc/common.cuh (nearest_sphere + scatter: per sphere 17
+
+
+def pipe_s(ops):
+    """Seconds of the busiest pipe for ``ops`` (per type; "fma" is not a
+    pipe's)."""
+    return max(ops[k] / RATES[k] for k in RATES)
+
+
+def issue_s(ops):
+    """Seconds to issue ``ops`` as thread instructions: each FP32 flop,
+    SFU and INT32 operation one, an FMA's two flops one."""
+    return (ops["fp32"] - ops["fma"] + ops["sfu"] + ops["int32"]) / ISSUE_RATE
+# Operations per live (sample, bounce) step of the parent design's Cornell
+# loop (trace_parent: every sample tests bounce 0's spheres, draws slot 0
+# and runs powf at every hit), counted from its sources: per sphere 17
 # round-to-nearest flops, an IEEE sqrt as one SFU op and 6 flops of
 # refinement, 6 compares and selects; then the hit point, four
 # normalisations with IEEE division, precise sincosf and powf as their
 # libdevice polynomials, two 20-round threefry blocks as 32-bit integer
-# adds, rotates and xors), and K2's material reverse step of csrc/grad.cu
-# (a log and a few divisions).  K2 keeps its records, so it too runs one
-# forward pass.
+# adds, rotates and xors; and the parent K2's material reverse step (a log
+# and a few divisions).  K4 still counts its sphere tests with these.  Of
+# the flops, "fma" pairs fuse: a sphere test's square root (2; its 17
+# others round to nearest and never fuse), and per step about 78 (the 12
+# refinements of six IEEE divisions and four of two square roots, the
+# polynomials of sincosf and powf, dot products, the cosine sample, the
+# mirror, emission and next origin); in the reverse step 18.
 FWD_STEP = {"fp32": 280, "fp32_per_sphere": 29, "sfu": 17, "sfu_per_sphere": 1,
-            "int32": 155}
-REV_STEP = {"fp32": 70, "sfu": 3}
+            "int32": 155, "fma": 78, "fma_per_sphere": 2}
+REV_STEP = {"fp32": 70, "sfu": 3, "fma": 18}
+# Operations of K1's and K2's loop as it is now (csrc/common.cuh trace, the
+# inexact cuts of kCornellFast: one reciprocal a normalisation, sincospif,
+# exp2(p log2 x)), per piece, counted from the sources in flops (an FMA 2;
+# an IEEE division or reciprocal one SFU op and 4 flops, an IEEE sqrt one
+# SFU op and 6 flops, a conversion one SFU op), with the pairs that fuse
+# under "fma"; shared-memory loads and stores are not counted:
+# - "sphere": one sphere test, as FWD_STEP counts it;
+# - "surface": a hit's Surface: the hit point (6), the normal (3 and a
+#   normalisation by one reciprocal: 19 flops, 2 SFU), the cosine frame
+#   (18 and a normalisation), dot(d, n) (5), the row's type (1 SFU and 3);
+# - "fresnel": a Fresnel surface's probability: 1 - aoi and its clamp,
+#   exp2(p log2 x) (2 SFU, ~11 flops), the lerp and scale (4);
+# - "scatter": one sample's scatter: the slot-1 threefry block (a 20-round
+#   chain of add, rotate and xor, the key schedule and the salts: ~87
+#   INT32; two conversions and scales), sincospif (~30 flops), two sqrts,
+#   the cosine sample (15) and its normalisation, cos2, the multiplier, and
+#   trace's emission, next origin and throughput (15);
+# - "draw0": a Fresnel hit's slot-0 threefry block and its compare;
+# - "pixel": K1's primary ray (IEEE round-to-nearest divisions and sqrt),
+#   first-hit depth and the mean's divisions;
+# - K2: "reverse", one record's reverse step at g = 1 (key decode, row
+#   address, cm, the multiplier, rn, and the shared-memory sums' adds);
+#   "score", a Fresnel record's score terms (a division, a log, and the
+#   per-channel sums); "k2_pixel", the primary ray, g and the scaling of the
+#   touched rows.
+# FMAs: a sphere test's square root (2); a Surface's two normalisations
+# (6 each: the squared length, the square root, the reciprocal), the frame's
+# cross products (4) and dot(d, n) (2); a Fresnel probability's lerp (1);
+# a scatter's sincospif polynomials (8), two square roots (4), the cosine
+# sample (6), its normalisation (6), cos2 (2), emission and next origin
+# (6); the pixel's six IEEE divisions and two square roots (16) and its
+# depth's and mean's dot products and divisions (8); a reverse step's
+# albedo and rn sums (6); a score's division, log and per-channel sums (8);
+# K2's pixel: the primary ray (12), the mean's divisions and the squared
+# errors (9), the scale's division (2) and the Fresnel sums' (6).
+CORNELL_OPS = {
+    "sphere": {"fp32": 29, "sfu": 1, "int32": 0, "fma": 2},
+    "surface": {"fp32": 71, "sfu": 5, "int32": 2, "fma": 18},
+    "fresnel": {"fp32": 17, "sfu": 2, "int32": 0, "fma": 1},
+    "scatter": {"fp32": 106, "sfu": 7, "int32": 90, "fma": 32},
+    "draw0": {"fp32": 3, "sfu": 2, "int32": 87, "fma": 0},
+    "pixel": {"fp32": 80, "sfu": 14, "int32": 10, "fma": 24},
+    "reverse": {"fp32": 21, "sfu": 1, "int32": 12, "fma": 6},
+    "score": {"fp32": 35, "sfu": 2, "int32": 0, "fma": 8},
+    "k2_pixel": {"fp32": 112, "sfu": 11, "int32": 22, "fma": 29},
+}
 
 # The mesh path (phases 12-17).  The nm scene of bench.py::_nm_wavefront_bench
 # and the small sphere of tests/test_config3_textured_mesh.py.
@@ -300,16 +392,35 @@ T_RTOL = 1e-4
 #   multiplications, 10 min/max and a compare, and 4 INT32; a node visit
 #   ~30 INT32.
 # A triangle test is 27 multiplications, 18 additions, 7 compares and the
-# division (56 + 1 SFU) in both.  The work itself needs no more than the
-# fewer of the two per operation type, TRAV_OPS, which the bounds of the
-# walks on the copy (K3, K3c, K4, K5) count; phases 17, 26, 34 and 39 print
-# beside it the bound with the copy's decode (TRAV_OPS_DECODE), what the
-# layout adds, and the float layout's bound.
+# division (56 + 1 SFU) in both, 16 of whose pairs fuse (the cross
+# products, the dot products, the reciprocal's refinement).  Fused pairs
+# ("fma_per_*"): the decode's fmaf per plane (6 a box) and per origin
+# distance (3 a visit); the float slab test's (l - o) * inv fuses none.
+# The work itself needs no more than the fewer of the two per operation
+# type, TRAV_OPS (the fewer flops, and the fused pairs that leave the fewer
+# FP32 instructions), which the bounds of the walks on the copy (K3, K3c,
+# K4, K5) count; phases 17, 26, 34 and 39 print beside it the bound with
+# the copy's decode (TRAV_OPS_DECODE), what the layout adds, and the float
+# layout's bound.
 TRAV_OPS_DECODE = {"fp32_per_box": 20, "fp32_per_visit": 15, "fp32_per_tri": 56,
-                   "sfu_per_tri": 1, "int32_per_visit": 51, "int32_per_box": 15}
+                   "sfu_per_tri": 1, "int32_per_visit": 51, "int32_per_box": 15,
+                   "fma_per_box": 6, "fma_per_visit": 3, "fma_per_tri": 16}
 TRAV_OPS_FLOAT = {"fp32_per_box": 23, "fp32_per_visit": 0, "fp32_per_tri": 56,
-                  "sfu_per_tri": 1, "int32_per_visit": 30, "int32_per_box": 4}
-TRAV_OPS = {k: min(v, TRAV_OPS_FLOAT[k]) for k, v in TRAV_OPS_DECODE.items()}
+                  "sfu_per_tri": 1, "int32_per_visit": 30, "int32_per_box": 4,
+                  "fma_per_box": 0, "fma_per_visit": 0, "fma_per_tri": 16}
+
+
+def _least_work(a, b):
+    """Per unit, the fewer of two tables' operations of each type; the
+    fused pairs chosen so that the FP32 instructions are the fewer."""
+    out = {k: min(v, b[k]) for k, v in a.items() if not k.startswith("fma")}
+    for unit in ("box", "visit", "tri"):
+        inst = min(t[f"fp32_per_{unit}"] - t[f"fma_per_{unit}"] for t in (a, b))
+        out[f"fma_per_{unit}"] = out[f"fp32_per_{unit}"] - inst
+    return out
+
+
+TRAV_OPS = _least_work(TRAV_OPS_DECODE, TRAV_OPS_FLOAT)
 TRAV_TABLES = {"copy": TRAV_OPS, "decode": TRAV_OPS_DECODE, "float": TRAV_OPS_FLOAT}
 
 
@@ -322,7 +433,9 @@ def trav_ops(visits, boxes, tris, layout="copy"):
     return {"fp32": (boxes * t["fp32_per_box"] + visits * t["fp32_per_visit"]
                      + tris * t["fp32_per_tri"]),
             "sfu": tris * t["sfu_per_tri"],
-            "int32": visits * t["int32_per_visit"] + boxes * t["int32_per_box"]}
+            "int32": visits * t["int32_per_visit"] + boxes * t["int32_per_box"],
+            "fma": (boxes * t["fma_per_box"] + visits * t["fma_per_visit"]
+                    + tris * t["fma_per_tri"])}
 
 
 def _compare(name, got, want, depth_outliers=False):
@@ -393,53 +506,269 @@ def _planted_faults(grads):
     }
 
 
-def live_steps(scene, settings, camera, frame, fc, fp, seed=0):
-    """The (sample, bounce) steps the kernels trace for these inputs: a
-    path runs the sphere test at every bounce until its first miss, which
-    ends it.  Returns (sphere-test steps, hit steps), from the plain
-    integrator's own pieces."""
+# K1's check builds (csrc/radiance.cu with -DVPT_CHECK_INSTANCES, whose
+# vpt_radiance_check launches the exact cuts alone, the parent design or
+# the planted fault), with FMA contraction as K1 ships and without.  With
+# contraction on, nvcc fuses a few multiply-adds of the parent loop and the
+# cut loop differently (the mirror branch's normalisation), so cuts (a) and
+# (b) are held bit for bit to the parent design in the contraction-free
+# build, where both compute the same arithmetic: exact at the source level.
+# With contraction, the elements apart (measured on an H100: 9, 1, 7 and 0
+# of the four scenes' 4.2 M, 0.26 M, 0.26 M and 8 K elements) are held
+# under CUT_FMA_APART_FRAC of each scene's, far below what a wrong cut
+# moves (the planted fault: 0.28% of the Cornell scene's rgb elements).
+K1_CHECK = ("radiance", ("-DVPT_CHECK_INSTANCES",))
+K1_CHECK_NOFMA = ("radiance", ("-DVPT_CHECK_INSTANCES", "-fmad=false"))
+K1_EXACT, K1_PARENT, K1_FAULT = 0, 8, 9
+CUT_FMA_APART_FRAC = 1e-4
+
+
+def specular_walls(scene):
+    """``scene`` with a grey specular colour of 0.3 on every row whose
+    specular colour is 0 (the Cornell walls and light): every DIFF hit is a
+    Fresnel surface, so cut (a) is never taken."""
+    spec = scene.spheres.spec_color.clone()
+    spec[(spec == 0).all(dim=1)] = 0.3
+    return scene.replace_spheres(spec_color=spec)
+
+
+def flip_free_frame(scene, settings, cam, fc=0.1, fp=3.0):
+    """The first frame in 1..24 where K1 and its plain version agree on
+    every rgb element to 1e-5 (a flipped branch moves K2's sums by a whole
+    path)."""
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+
+    for frame in range(1, 25):
+        got, _ = k1.render_pass_cuda(scene, settings, cam, frame, fc, fp)
+        want, _ = k1.render_pass_reference(scene, settings, cam, frame, fc, fp)
+        if (got - want).abs().max().item() <= 1e-5:
+            return frame
+    raise AssertionError("no flip-free frame in 1..24")
+
+
+def k2_small_check(a, label):
+    """K2 against its plain version on ``a`` (cornell_loss_grads'
+    arguments) at the tolerances of tests/test_pallas_grad.py; returns the
+    largest absolute error."""
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
+
+    got = k2.cornell_loss_grads(*a)
+    torch.cuda.synchronize()
+    want = k2.cornell_loss_grads_reference(*a)
+    print(f"  {label}: loss {got[0].item():.6g} vs {want[0].item():.6g}")
+    rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    assert rel <= 1e-4, f"loss rel err {rel}"
+    err = 0.0
+    for name, i, rtol, atol in (("dcolor", 1, 1e-2, 2e-4),
+                                ("demission", 2, 1e-2, 2e-4),
+                                ("dfresnel_coef", 3, 1e-2, 1e-6),
+                                ("dfresnel_pow", 4, 1e-2, 1e-6)):
+        err = max(err, _close(name, got[i], want[i], rtol, atol))
+    if a[-1]:  # with_camera
+        for name, rtol, atol in (("origin", 2e-2, 2e-6), ("yaw", 2e-2, 1e-5),
+                                 ("pitch", 2e-2, 1e-5), ("fov_deg", 2e-2, 1e-6)):
+            err = max(err, _close(f"dcamera.{name}", getattr(got[5], name),
+                                  getattr(want[5], name), rtol, atol))
+    return err
+
+
+def k1_check_launcher(lib, dev):
+    """K1's check build ``lib`` as ``fn(cam, spheres, settings, frame, seed,
+    variant) -> (rgb, depth)`` (csrc/radiance.cu vpt_radiance_check)."""
+    import ctypes
+
+    fn = ctypes.CDLL(str(lib)).vpt_radiance_check
+    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32,
+                   ctypes.c_float, ptr, ptr, ptr, i32]
+    fn.restype = ctypes.c_int
+
+    def run(cam_t, sph, s, frame, seed, variant):
+        rgb = torch.empty((s.n_pixels, 3), dtype=torch.float32, device=dev)
+        depth = torch.empty((s.n_pixels,), dtype=torch.float32, device=dev)
+        err = fn(cam_t.data_ptr(), sph.data_ptr(), sph.shape[0], seed, 0,
+                 frame, s.width, s.height, s.samples_per_pass, s.bounces,
+                 s.depth_scale, rgb.data_ptr(), depth.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream, variant)
+        assert err == 0, f"K1 check instance {variant} launch failed: {err}"
+        return rgb, depth
+
+    return run
+
+
+def k1_cut_checks(dev, libs, base, cam):
+    """Phase 3's check of cuts (a) and (b): in the contraction-free check
+    build K1's exact cuts alone give the parent design's image and depth bit
+    for bit, and the planted fault (cut (a) taken on Fresnel surfaces too)
+    does not; in the check build with contraction, as K1 ships, the
+    elements apart are counted and held under CUT_FMA_APART_FRAC.  On a
+    scene with specular walls (cut (a) never taken) the shipped kernel
+    holds K1's contract against the plain version and the fault breaks it.
+    Returns a summary for the kernels line."""
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+
+    nofma = k1_check_launcher(libs[K1_CHECK_NOFMA], dev)
+    fma = k1_check_launcher(libs[K1_CHECK], dev)
+
+    def same(x, y):
+        return torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+
+    full = base.replace(width=WIDTH, height=HEIGHT)
+    cornell = Scene.analytic(full, dev)
+    cases = {
+        "Cornell 1024^2, frame 1": (cornell, full, 1, 0.1, 3.0, 0),
+        "Cornell 256^2, frame 3, seed 7, sliders (0.4, 1.5)": (
+            cornell, base.replace(width=256, height=256), 3, 0.4, 1.5, 7),
+        "specular walls 256^2, frame 1": (
+            specular_walls(cornell), base.replace(width=256, height=256), 1,
+            0.1, 3.0, 0),
+        "well-conditioned scene 64x32, frame 2, sliders (0.4, 1.5)": (
+            _benign_scene(dev), base.replace(width=64, height=32), 2, 0.4,
+            1.5, 0),
+    }
+    apart = {}
+    for name, (scene, s, frame, fc, fp, seed) in cases.items():
+        cam_t, sph = k1.pack_camera(cam, s, fc, fp), k1.pack_spheres(scene.spheres)
+        parent = nofma(cam_t, sph, s, frame, seed, K1_PARENT)
+        exact = nofma(cam_t, sph, s, frame, seed, K1_EXACT)
+        fault = nofma(cam_t, sph, s, frame, seed, K1_FAULT)
+        pair = [fma(cam_t, sph, s, frame, seed, v) for v in (K1_PARENT, K1_EXACT)]
+        apart[name] = int((pair[0][0] != pair[1][0]).sum()
+                          + (pair[0][1] != pair[1][1]).sum())
+        frac = apart[name] / (4 * s.n_pixels)
+        print(f"  cuts (a) and (b), {name}: without contraction "
+              f"{'bit-identical' if same(exact, parent) else 'DIFFERENT'} to the "
+              f"parent design, the planted fault "
+              f"{(fault[0] != parent[0]).sum().item()} rgb elements apart; "
+              f"with contraction {apart[name]} elements apart ({frac:.3g}, "
+              f"limit {CUT_FMA_APART_FRAC})")
+        assert same(exact, parent), f"cuts (a) and (b) change K1's output: {name}"
+        assert not same(fault, parent), f"K1's planted fault changes nothing: {name}"
+        assert frac <= CUT_FMA_APART_FRAC, f"cuts (a) and (b) with contraction: {name}"
+    walls = specular_walls(cornell)
+    _compare("K1 1024x1024 specular walls (cut (a) never taken)",
+             k1.render_pass_cuda(walls, full, cam, 1, 0.1, 3.0),
+             k1.render_pass_reference(walls, full, cam, 1, 0.1, 3.0),
+             depth_outliers=True)
+    fault_frac = {}
+    for name, scene in (("specular walls", walls), ("Cornell", cornell)):
+        cam_t, sph = k1.pack_camera(cam, full, 0.1, 3.0), k1.pack_spheres(scene.spheres)
+        got = fma(cam_t, sph, full, 1, 0, K1_FAULT)
+        want = k1.render_pass_reference(scene, full, cam, 1, 0.1, 3.0)
+        fault_frac[name] = ((got[0] - want[0]).abs() > RGB_ATOL).float().mean().item()
+        print(f"  planted fault (cut (a) on Fresnel surfaces too), {name} "
+              f"1024x1024: {fault_frac[name]:.4%} rgb elements off by more "
+              f"than {RGB_ATOL} (contract: under {OUTLIER_FRAC:.0%})")
+    assert fault_frac["specular walls"] >= OUTLIER_FRAC, "K1's fault holds the contract"
+    return {"nofma": True, "fma_apart": apart, "fault": fault_frac}
+
+
+def cornell_work(scene, settings, camera, frame, fc, fp, seed=0):
+    """What K1 and K2 trace for these inputs, counted with the plain
+    integrator's own pieces: a path runs the sphere test at every bounce
+    until its first miss, which ends it.  Returns a dict: "pixels"; "hits0",
+    pixels whose primary ray hits; "fres0", those whose bounce-0 hit is a
+    Fresnel surface (DIFF with spec[0] != 0); per sample at bounces >= 1,
+    "tests" (sphere-test steps), "hits" and "fres" (hit steps, on Fresnel
+    surfaces); over all bounces "steps" and "fres_steps" (hit steps, on
+    Fresnel surfaces); for K2, "records" (hit steps of samples that
+    survive) and "scores" (their Fresnel records with p inside its clip
+    range); "spp"; and the parent design's "tests_all" for FWD_STEP."""
     from vrenderer_pathtracer_tpu_torch.core import rng
     from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
     from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
     from vrenderer_pathtracer_tpu_torch.render.integrator import _intersect_sphere_set
+    from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF, SPEC
 
     ray_o0, ray_d0 = generate_rays(camera, settings.width, settings.height)
     ids = pixel_ids(settings.width, settings.height, ray_o0.device)
-    tests = hits = 0
+    w = dict.fromkeys(("tests", "hits", "fres", "steps", "fres_steps",
+                       "records", "scores", "tests_all", "hits0", "fres0"), 0)
+    w["pixels"], w["spp"] = settings.n_pixels, settings.samples_per_pass
     with torch.no_grad():
         for s in range(settings.samples_per_pass):
             o, d = ray_o0, ray_d0
             alive = torch.ones_like(ids, dtype=torch.bool)
             sid = torch.full_like(ids, s)
+            rec = torch.zeros_like(ids)
+            score = torch.zeros_like(ids)
             for b in range(settings.bounces):
-                tests += int(alive.sum())
+                w["tests_all"] += int(alive.sum())
+                if b > 0:
+                    w["tests"] += int(alive.sum())
                 hd = _intersect_sphere_set(scene, o, d)
                 alive = alive & hd.hit
-                hits += int(alive.sum())
+                fres = (alive & (hd.hit_type != SPEC) & (hd.hit_type != BRDF)
+                        & (hd.spec_color[:, 0] != 0))
+                n_hit, n_fres = int(alive.sum()), int(fres.sum())
+                if b == 0 and s == 0:
+                    w["hits0"], w["fres0"] = n_hit, n_fres
+                if b > 0:
+                    w["hits"] += n_hit
+                    w["fres"] += n_fres
+                w["steps"] += n_hit
+                w["fres_steps"] += n_fres
                 u0, _ = rng.uniform2(seed, ids, rng.make_stream(frame, sid, b, 0))
                 u1, u2 = rng.uniform2(seed, ids, rng.make_stream(frame, sid, b, 1))
+                aoi = (hd.normal * -d).sum(-1)
+                p = ((1.0 - aoi).clamp(min=0.0) ** fp * (1.0 - fc) + fc) * hd.spec_color[:, 0]
+                rec += alive.long()
+                score += (fres & (p >= 1e-6) & (p <= 1.0 - 1e-6)).long()
                 nd, _ = scatter(d, hd.normal, hd.tangent, hd.color,
                                 hd.spec_color, hd.hit_type, u0, u1, u2, fc, fp)
                 a3 = alive[:, None]
                 o = torch.where(a3, hd.point + ORIGIN_OFFSET * hd.normal, o)
                 d = torch.where(a3, nd, d)
-    return tests, hits
+            w["records"] += int(rec[alive].sum())
+            w["scores"] += int(score[alive].sum())
+    return w
 
 
-def bound(n_spheres, tests, hits, n_bytes, reverse=None):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and, per operation type, the operations over the card's peak rate."""
-    ops = {
-        "fp32": tests * FWD_STEP["fp32_per_sphere"] * n_spheres + hits * FWD_STEP["fp32"],
-        "sfu": tests * FWD_STEP["sfu_per_sphere"] * n_spheres + hits * FWD_STEP["sfu"],
-        "int32": hits * FWD_STEP["int32"],
-    }
-    for k, v in (reverse or {}).items():
-        ops[k] += hits * v
-    t_ops = max(ops[k] / RATES[k] for k in ops)
+def cornell_ops(w, n_spheres, kernel):
+    """Operations per type of K1 ("k1") or K2 ("k2") on the work ``w`` of
+    ``cornell_work`` (CORNELL_OPS), or of the parent design's loop
+    ("parent": FWD_STEP on every sample's steps)."""
+    ops = {"fp32": 0, "sfu": 0, "int32": 0, "fma": 0}
+
+    def add(piece, count):
+        for k, v in CORNELL_OPS[piece].items():
+            ops[k] += count * v
+
+    if kernel == "parent":
+        for k in ops:
+            ops[k] = w["steps"] * FWD_STEP.get(k, 0)
+        for k in ("fp32", "sfu", "fma"):
+            ops[k] += w["tests_all"] * n_spheres * FWD_STEP[f"{k}_per_sphere"]
+        return ops
+    spp = w["spp"]
+    # K1 holds bounce 0's Surface for the pixel (cut (b)); K2 only its
+    # sphere loop, and recomputes the rest per sample.
+    surfaces0 = w["hits0"] if kernel == "k1" else spp * w["hits0"]
+    fres0 = w["fres0"] if kernel == "k1" else spp * w["fres0"]
+    add("sphere", (w["pixels"] + w["tests"]) * n_spheres)
+    add("surface", surfaces0 + w["hits"])
+    add("fresnel", fres0 + w["fres"])
+    add("scatter", w["steps"])
+    add("draw0", w["fres_steps"])
+    if kernel == "k1":
+        add("pixel", w["pixels"])
+    else:
+        add("reverse", w["records"])
+        add("score", w["scores"])
+        add("k2_pixel", w["pixels"])
+    return ops
+
+
+def bound(ops, n_bytes):
+    """(bound_ms, bound_by, issue_ms): the larger of the bytes over the
+    memory rate and, per operation type, the operations over the card's
+    peak rate; and the larger of the bytes' time and the instructions over
+    the issue rate (``issue_s``)."""
+    t_ops = pipe_s(ops)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, by, ops
+    return max(t_ops, t_bytes) * 1e3, by, max(issue_s(ops), t_bytes) * 1e3
 
 
 def device_profile(name, fn, n, top=5):
@@ -627,10 +956,11 @@ def mesh_read_bytes(mesh, wide, layout="copy"):
 
 
 def traversal_bound(mesh, wide, waves, layout="copy"):
-    """(bound_ms, bound_by, work, bytes) of K3 (``wide``) or K3b over one
-    pass's ``waves``: per wave the larger of the bytes over the memory rate
-    and, per operation type, the operations over the card's peak rate,
-    summed over the waves.  A wave reads t_max (4 bytes) and writes slot
+    """(bound_ms, bound_by, work, bytes, issue_ms) of K3 (``wide``) or K3b
+    over one pass's ``waves``: per wave the larger of the bytes over the
+    memory rate and, per operation type, the operations over the card's
+    peak rate (issue_ms: their sum over the issue rate), summed over the
+    waves.  A wave reads t_max (4 bytes) and writes slot
     and t (8) for every ray, and reads origin and direction (24) only where
     t_max > 0: a dead lane returns after reading t_max.  The mesh is read
     once a pass (``mesh_read_bytes``, charged to the first wave): it stays
@@ -646,22 +976,23 @@ def traversal_bound(mesh, wide, waves, layout="copy"):
     mesh_bytes = mesh_read_bytes(mesh, wide, layout)
     if not wide:  # K3b's slab test is the float one
         layout = "float"
-    total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0], 0
+    total, by_ops, work, n_bytes, issue = 0.0, 0.0, [0, 0, 0], 0, 0.0
     for i, (o, d, t) in enumerate(waves):
         stats = torch.zeros(3, dtype=torch.int64, device=o.device)
         launch(mesh, o, d, t, stats=stats)
         visits, boxes, tris = (int(x) for x in stats.tolist())
         work = [a + b for a, b in zip(work, (visits, boxes, tris))]
         ops = trav_ops(visits, boxes, tris, layout)
-        t_ops = max(ops[k] / RATES[k] for k in ops)
+        t_ops = pipe_s(ops)
         wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
                       + (mesh_bytes if i == 0 else 0))
         n_bytes += wave_bytes
         t_bytes = wave_bytes / HBM_BYTES_PER_S
         total += max(t_ops, t_bytes)
+        issue += max(issue_s(ops), t_bytes)
         by_ops += t_ops if t_ops >= t_bytes else 0.0
     return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
-            work, n_bytes)
+            work, n_bytes, issue * 1e3)
 
 
 def chain_pairs(r, s, dev, card, pairs=CHAIN_PAIRS):
@@ -869,16 +1200,18 @@ def mesh_phases(dev, card, rays_per_pass_of):
     rows = []
     for kname, m, wide, launches in (("K3", mesh, True, k3_launches),
                                      ("K3b", binary, False, k3b_launches)):
-        b_ms, by, work, n_bytes = traversal_bound(m, wide, main_waves)
+        b_ms, by, work, n_bytes, i_ms = traversal_bound(m, wide, main_waves)
         k_ms = ms[f"{kname} pass (4 waves)"]
         print(f"{kname} bound per pass {b_ms:.4f} ms ({by}; node visits "
               f"{work[0]}, box tests {work[1]}, triangle tests {work[2]}, "
               f"bytes {n_bytes} of which mesh {mesh_read_bytes(m, wide)}, "
               f"live rays {[int((w[2] > 0).sum()) for w in main_waves]}), "
-              f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound")
+              f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound; issue "
+              f"bound {i_ms:.4f} ms = {i_ms / k_ms:.1%}")
         if wide:
             d_ms, d_by = traversal_bound(m, wide, main_waves, "decode")[:2]
-            f_ms, f_by, _, f_bytes = traversal_bound(m, wide, main_waves, "float")
+            f_ms, f_by, _, f_bytes, _ = traversal_bound(m, wide, main_waves,
+                                                        "float")
             print(f"  {kname} bound with the copy's decode: {d_ms:.4f} ms "
                   f"({d_by}, TRAV_OPS_DECODE), {d_ms / k_ms:.1%} of the "
                   f"measured time; on the float layout it read before: "
@@ -899,6 +1232,7 @@ def mesh_phases(dev, card, rays_per_pass_of):
             "plain_ms": ms["plain pass (4 waves)"],
             "bound_ms": b_ms,
             "bound_by": by,
+            "bound_issue_ms": i_ms,
             **({"bound_ms_decode": d_ms} if wide else {}),
             "library_ms": None,
         })
@@ -943,21 +1277,28 @@ K4_GRAD_RTOL, K4_GRAD_FRAC = 0.05, 0.02
 # (FWD_STEP plus ~40 FP32 operations and 2 SFU); a BRDF hit adds the MERL
 # index (two acosf, two atan2f, three normalisations: ~190 FP32, 8 SFU); a
 # lobe-MIS draw adds a threefry block, a 7-step binary search, a frame, a
-# reflection and the two pdfs (~180 FP32, 10 SFU, ~100 INT32).
-K4_OPS = {"hit_fp32": 320, "hit_sfu": 19, "hit_int32": 155,
-          "brdf_fp32": 190, "brdf_sfu": 8,
-          "mis_fp32": 180, "mis_sfu": 10, "mis_int32": 100}
+# reflection and the two pdfs (~180 FP32, 10 SFU, ~100 INT32).  Fused
+# pairs: a hit FWD_STEP's 78 and ~10 of the surface's; a BRDF index the
+# polynomials of acosf and atan2f (~40) and the normalisations' (~30); a
+# MIS draw's frame, reflection and pdfs (~40).
+K4_OPS = {"hit_fp32": 320, "hit_sfu": 19, "hit_int32": 155, "hit_fma": 88,
+          "brdf_fp32": 190, "brdf_sfu": 8, "brdf_fma": 70,
+          "mis_fp32": 180, "mis_sfu": 10, "mis_int32": 100, "mis_fma": 40}
 # The direct mode's fetches (csrc/mesh.cu env_fetch, tex_fetch,
 # merl_factor), counted the same way: an HDRI fetch is atan2f and acosf
 # (~40 FP32, 3 SFU), two IEEE divisions (8 FP32, 2 SFU), the texel address
 # (~10 INT32, ~30 with the bilinear wrap) and the blend (6 FP32 a channel
 # nearest, 24 bilinear) times the path weight; a texture fetch the
 # address and the blend; a MERL factor 9 FP32 and 3 INT32 for its index.
-K4_FETCH_OPS = {"env_fp32": 70, "env_sfu": 5, "env_int32": 10,
+# Fused pairs: the polynomials and divisions (~21) and the weighted blend;
+# the bilinear lerps are FMAs.
+K4_FETCH_OPS = {"env_fp32": 70, "env_sfu": 5, "env_int32": 10, "env_fma": 25,
                 "env_bilinear_fp32": 125, "env_bilinear_int32": 30,
-                "tex_fp32": 12, "tex_int32": 10,
+                "env_bilinear_fma": 50,
+                "tex_fp32": 12, "tex_int32": 10, "tex_fma": 3,
                 "tex_bilinear_fp32": 80, "tex_bilinear_int32": 30,
-                "merl_fp32": 9, "merl_int32": 3}
+                "tex_bilinear_fma": 35,
+                "merl_fp32": 9, "merl_int32": 3, "merl_fma": 3}
 
 
 def glossy_merl(width, tint, amp=3000.0, floor=2.0):
@@ -1097,7 +1438,7 @@ def k4_contract(a, cornell):
 
 
 def k4_bound(r, stats, n_slots, direct=False, layout="copy"):
-    """(bound_ms, bound_by, ops, bytes) of one K4 launch on ``r``'s scene
+    """(bound_ms, bound_by, ops, bytes, issue_ms) of one K4 launch on ``r``'s scene
     from the work the kernel counted (``stats``, cuda_mesh.STATS order):
     the larger of the bytes over the memory rate and, per operation type,
     the operations over the card's peak rate.  Bytes: the mesh, its
@@ -1122,6 +1463,9 @@ def k4_bound(r, stats, n_slots, direct=False, layout="copy"):
                 + mis * K4_OPS["mis_sfu"] + walk["sfu"]),
         "int32": (hits * K4_OPS["hit_int32"] + mis * K4_OPS["mis_int32"]
                   + walk["int32"]),
+        "fma": (traced * spheres * FWD_STEP["fma_per_sphere"]
+                + hits * K4_OPS["hit_fma"] + brdf * K4_OPS["brdf_fma"]
+                + mis * K4_OPS["mis_fma"] + walk["fma"]),
     }
     n_bytes = 14 * 4 * scene.spheres.count
     if s.has_mesh and not s.use_example_sphere:
@@ -1138,6 +1482,8 @@ def k4_bound(r, stats, n_slots, direct=False, layout="copy"):
         ops["sfu"] += env * f["env_sfu"]
         ops["int32"] += (env * f[f"env{bil}_int32"] + tex * f[f"tex{bil}_int32"]
                          + brdf * f["merl_int32"])
+        ops["fma"] += (env * f[f"env{bil}_fma"] + tex * f[f"tex{bil}_fma"]
+                       + brdf * f["merl_fma"])
         defer = k4.Defer(s)
         n_bytes += 16 * s.n_pixels + sum(
             t.numel() * 4 for t, on in ((scene.hdr, defer.env),
@@ -1145,10 +1491,11 @@ def k4_bound(r, stats, n_slots, direct=False, layout="copy"):
                                         (scene.brdf, defer.merl)) if on)
     else:
         n_bytes += 4 * n_slots * s.n_pixels
-    t_ops = max(ops[k] / RATES[k] for k in ops)
+    t_ops = pipe_s(ops)
     t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_issue = max(issue_s(ops), t_bytes)
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            ops, n_bytes)
+            ops, n_bytes, t_issue * 1e3)
 
 
 def many_spheres(scene, n, rng, visible):
@@ -1480,17 +1827,18 @@ def k4_phases(dev, card, work_dir, nm_obj):
             stats = torch.zeros(len(k4.STATS), dtype=torch.int64, device=dev)
             k4.launch_k4(*k4_args(r), 1, 0, stats=stats, direct=mode == k4.DIRECT)
             counts = dict(zip(k4.STATS, stats.tolist()))
-            b_ms, by, ops, n_bytes = k4_bound(r, stats.tolist(), n_slots,
-                                              direct=mode == k4.DIRECT)
+            b_ms, by, ops, n_bytes, i_ms = k4_bound(r, stats.tolist(), n_slots,
+                                                    direct=mode == k4.DIRECT)
             d_ms, f_ms = (k4_bound(r, stats.tolist(), n_slots, direct=mode == k4.DIRECT,
                                    layout=lay)[0] for lay in ("decode", "float"))
-            rows[(name, mode)] = (b_ms, by, d_ms)
+            rows[(name, mode)] = (b_ms, by, d_ms, i_ms)
             k_ms = ms[f"K4 {mode} {name}"]
             print(f"K4 bound, {name}, {mode} mode: {b_ms:.4f} ms ({by}; {counts}; "
                   f"ops {ops}; bytes {n_bytes}"
                   + (f", records {4 * n_slots * r.settings.n_pixels} written and "
                      "read again by compose" if mode == k4.RECORDS else "")
                   + f"), measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound; "
+                  f"issue bound {i_ms:.4f} ms = {i_ms / k_ms:.1%}; "
                   f"with the copy's decode {d_ms:.4f} ms, on the float layout "
                   f"the walk read before {f_ms:.4f} ms, {card}")
     for name in ("mesh-megakernel", "config 4"):
@@ -1519,6 +1867,7 @@ def k4_phases(dev, card, work_dir, nm_obj):
         "bound_ms": rows[("mesh-megakernel", k4.DIRECT)][0],
         "bound_by": rows[("mesh-megakernel", k4.DIRECT)][1],
         "bound_ms_decode": rows[("mesh-megakernel", k4.DIRECT)][2],
+        "bound_issue_ms": rows[("mesh-megakernel", k4.DIRECT)][3],
         "bound_ms_records": rows[("mesh-megakernel", k4.RECORDS)][0],
         "bound_ms_config4": rows[("config 4", k4.DIRECT)][0],
         "grad_rel_err": grad_err,
@@ -1619,14 +1968,14 @@ def paged_read_bytes(mesh, layout="copy"):
 
 
 def paged_bound(mesh, waves, layout="copy"):
-    """(bound_ms, bound_by, work, bytes) of K5 over ``waves``, as
+    """(bound_ms, bound_by, work, bytes, issue_ms) of K5 over ``waves``, as
     ``traversal_bound`` counts K3's (``layout`` too): the work K5 counts on
     these rays (node visits, box tests, triangle tests, pages searched), the
     rays' bytes, and the paged arrays once."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
 
     mesh_bytes = paged_read_bytes(mesh, layout)
-    total, by_ops, work, n_bytes = 0.0, 0.0, [0, 0, 0, 0], 0
+    total, by_ops, work, n_bytes, issue = 0.0, 0.0, [0, 0, 0, 0], 0, 0.0
     for i, (o, d, t) in enumerate(waves):
         stats = torch.zeros(4, dtype=torch.int64, device=o.device)
         k5.launch_k5(mesh, o, d, t, stats=stats)
@@ -1634,15 +1983,16 @@ def paged_bound(mesh, waves, layout="copy"):
         work = [a + b for a, b in zip(work, got)]
         visits, boxes, tris, _ = got
         ops = trav_ops(visits, boxes, tris, layout)
-        t_ops = max(ops[k] / RATES[k] for k in ops)
+        t_ops = pipe_s(ops)
         wave_bytes = (o.shape[0] * (4 + 8) + int((t > 0).sum()) * 24
                       + (mesh_bytes if i == 0 else 0))
         n_bytes += wave_bytes
         t_bytes = wave_bytes / HBM_BYTES_PER_S
         total += max(t_ops, t_bytes)
+        issue += max(issue_s(ops), t_bytes)
         by_ops += t_ops if t_ops >= t_bytes else 0.0
     return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
-            work, n_bytes)
+            work, n_bytes, issue * 1e3)
 
 
 def sample_rays(wave, n, seed):
@@ -1690,8 +2040,8 @@ def grad_parity(name, got, want):
 
 
 def sass_opcodes(lib):
-    """Print each kernel's count of FMA-class instructions in the SASS of
-    ``lib`` (cuobjdump, where the toolkit has it)."""
+    """Print each kernel's count of SASS instructions and of FMA-class ones
+    in ``lib`` (cuobjdump, where the toolkit has it)."""
     import re
     import shutil
 
@@ -1706,7 +2056,8 @@ def sass_opcodes(lib):
         name = chunk.split()[0]
         ops = re.findall(r"\b(FFMA|HFMA2(?:\.[A-Z0-9_]+)*|FMUL|FADD)\b", chunk)
         counts = {op: ops.count(op) for op in sorted(set(ops))}
-        print(f"  SASS {name[:60]}: {counts}")
+        total = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", chunk, re.M))
+        print(f"  SASS {name[:72]}: {total} instructions, {counts}")
 
 
 def config5_phases(dev, card, work_dir):
@@ -1962,16 +2313,17 @@ def config5_phases(dev, card, work_dir):
     ms = {name: sum(v) / len(v) for name, v in tms.items()}
     for name, v in tms.items():
         print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
-    b_ms, by, work, n_bytes = paged_bound(mesh, spec_waves)
+    b_ms, by, work, n_bytes, i_ms = paged_bound(mesh, spec_waves)
     print(f"K5 bound per pass {b_ms:.4f} ms ({by}; node visits {work[0]}, box "
           f"tests {work[1]}, triangle tests {work[2]}, pages searched "
           f"{work[3]}, bytes {n_bytes} of which mesh {paged_read_bytes(mesh)}, "
           f"rays {[wv[0].shape[0] for wv in spec_waves]}, live "
           f"{[int((wv[2] > 0).sum()) for wv in spec_waves]}), measured "
           f"{ms['K5 pass (4 waves)']:.4f} ms = "
-          f"{b_ms / ms['K5 pass (4 waves)']:.1%} of bound, {card}")
+          f"{b_ms / ms['K5 pass (4 waves)']:.1%} of bound; issue bound "
+          f"{i_ms:.4f} ms = {i_ms / ms['K5 pass (4 waves)']:.1%}, {card}")
     d_ms, d_by = paged_bound(mesh, spec_waves, "decode")[:2]
-    f_ms, f_by, _, f_bytes = paged_bound(mesh, spec_waves, "float")
+    f_ms, f_by, _, f_bytes, _ = paged_bound(mesh, spec_waves, "float")
     print(f"  K5 bound with the copy's decode: {d_ms:.4f} ms ({d_by}, "
           f"TRAV_OPS_DECODE), {d_ms / ms['K5 pass (4 waves)']:.1%} of the "
           f"measured time; on the float layout it read before: {f_ms:.4f} ms "
@@ -1996,7 +2348,7 @@ def config5_phases(dev, card, work_dir):
           f"on every ray of the four spec waves; K5's gate fault: {gate_off} "
           f"rays apart")
     assert gate_off > 0, "K5's gate fault keeps K3's every winner"
-    k3b_ms, k3by, k3work, _ = traversal_bound(flat, True, spec_waves)
+    k3b_ms, k3by, k3work = traversal_bound(flat, True, spec_waves)[:3]
     print(f"K3 comparison, config-5 waves: K5 {ms['K5 pass (4 waves)']:.4f} "
           f"ms a pass ({ms['K5 primary']:.4f} primary), K3 on the "
           f"single-level pack {ms['K3 pass (4 waves)']:.4f} ms "
@@ -2046,6 +2398,10 @@ def config5_phases(dev, card, work_dir):
                        K6_N * 8 / HBM_BYTES_PER_S) * 1e3
     bf16_bound_ms = max(bf16_flops / BF16X2_RATE,
                         2 * K6_N * 4 / HBM_BYTES_PER_S) * 1e3
+    # The chain is nothing but packed FMAs, so its issue bound counts them
+    # as instructions: one a pair of elements (4 flops).
+    bf16_issue_ms = max(bf16_flops / 4 / ISSUE_RATE,
+                        2 * K6_N * 4 / HBM_BYTES_PER_S) * 1e3
     for name, v in tms6.items():
         print(f"K6 {name}: {', '.join(f'{x:.4f}' for x in v)} ms")
     print(f"K6: float32 {f32_rate / 1e9:.2f} G elements/s "
@@ -2070,6 +2426,7 @@ def config5_phases(dev, card, work_dir):
         "plain_ms": ms["plain pass (4 waves)"],
         "bound_ms": b_ms,
         "bound_by": by,
+        "bound_issue_ms": i_ms,
         "bound_ms_decode": d_ms,
         "library_ms": None,
     }, {
@@ -2086,6 +2443,7 @@ def config5_phases(dev, card, work_dir):
         "plain_ms": ms6["plain bf16"],
         "bound_ms": bf16_bound_ms,
         "bound_by": "operations",
+        "bound_issue_ms": bf16_issue_ms,
         "library_ms": None,
     }]
 
@@ -2101,10 +2459,11 @@ def config5_phases(dev, card, work_dir):
 # computes the face normal (9 FP32 operations), the uv (12) and two
 # interpolations (15 each), and three normalisations (17 FP32 with the IEEE
 # square root and division counted as TRAV_OPS counts a division, 2 SFU
-# each).
+# each); of these, 3 + 4 + 6 + 6 + 3 * 6 pairs fuse.
 CAPTURE_ROW_BYTES = 12 + 12 + 24 + 36 + 36
 CAPTURE_RAY_BYTES = 11 * 4
-CAPTURE_OPS = {"fp32_per_hit": 9 + 12 + 15 + 15 + 3 * 17, "sfu_per_hit": 3 * 2}
+CAPTURE_OPS = {"fp32_per_hit": 9 + 12 + 15 + 15 + 3 * 17, "sfu_per_hit": 3 * 2,
+               "fma_per_hit": 3 + 4 + 6 + 6 + 3 * 6}
 CAPTURE_PAIRS = 10
 # BASELINE config 3 from its files: a UV sphere standing in for the
 # Stanford bunny (69,451 triangles; the bunny is not in the repository),
@@ -2116,7 +2475,7 @@ C3_SIZE, C3_PASSES = 512, 8
 
 
 def capture_bound(mesh, waves, fields, layout="copy"):
-    """(bound_ms, bound_by, rows) of K3c over one pass's ``waves``: K3's work
+    """(bound_ms, bound_by, rows, issue_ms) of K3c over one pass's ``waves``: K3's work
     (``traversal_bound``, its operations as ``layout`` counts them) on each
     wave plus the capture's bytes and operations on its hits, per wave the
     larger of bytes and operations over the card's rates, summed.  A
@@ -2125,7 +2484,7 @@ def capture_bound(mesh, waves, fields, layout="copy"):
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
 
     mesh_bytes = mesh_read_bytes(mesh, True)
-    total = by_ops = 0.0
+    total = by_ops = issue = 0.0
     read = torch.zeros(mesh.tri_e1.shape[0], dtype=torch.bool,
                        device=mesh.tri_e1.device)
     for i, (o, d, t) in enumerate(waves):
@@ -2139,15 +2498,17 @@ def capture_bound(mesh, waves, fields, layout="copy"):
         ops = trav_ops(visits, boxes, tris, layout)
         ops["fp32"] += hits * CAPTURE_OPS["fp32_per_hit"]
         ops["sfu"] += hits * CAPTURE_OPS["sfu_per_hit"]
-        t_ops = max(ops[k] / RATES[k] for k in ops)
+        ops["fma"] += hits * CAPTURE_OPS["fma_per_hit"]
+        t_ops = pipe_s(ops)
         n_bytes = (o.shape[0] * (4 + 8 + CAPTURE_RAY_BYTES)
                    + int((t > 0).sum()) * 24 + rows * CAPTURE_ROW_BYTES
                    + (mesh_bytes if i == 0 else 0))
         t_bytes = n_bytes / HBM_BYTES_PER_S
         total += max(t_ops, t_bytes)
+        issue += max(issue_s(ops), t_bytes)
         by_ops += t_ops if t_ops >= t_bytes else 0.0
     return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
-            int(read.sum()))
+            int(read.sum()), issue * 1e3)
 
 
 def capture_reading(name, a):
@@ -2274,13 +2635,14 @@ def capture_phases(dev, card, nm_obj):
     ms = {name: sum(v) / len(v) for name, v in tk.items()}
     for name, v in tk.items():
         print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
-    b_ms, by, rows = capture_bound(mesh, waves, fields)
+    b_ms, by, rows, i_ms = capture_bound(mesh, waves, fields)
     d_ms = capture_bound(mesh, waves, fields, "decode")[0]
     print(f"K3c bound per pass {b_ms:.4f} ms ({by}; {rows} winning triangles' "
           f"attribute rows), measured "
           f"{ms['K3c pass (4 waves)']:.4f} ms = "
           f"{b_ms / ms['K3c pass (4 waves)']:.1%} of bound (with the copy's "
-          f"decode {d_ms:.4f} ms); K3 "
+          f"decode {d_ms:.4f} ms; issue bound {i_ms:.4f} ms = "
+          f"{i_ms / ms['K3c pass (4 waves)']:.1%}); K3 "
           f"{ms['K3 pass (4 waves)']:.4f} ms on the same waves, {card}")
     return {
         "name": "K3c 8-wide BVH traversal with win-time attribute capture",
@@ -2296,6 +2658,7 @@ def capture_phases(dev, card, nm_obj):
         "plain_ms": ms["plain pass (4 waves)"],
         "bound_ms": b_ms,
         "bound_by": by,
+        "bound_issue_ms": i_ms,
         "bound_ms_decode": d_ms,
         "library_ms": None,
     }
@@ -2434,11 +2797,14 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    # 2. Build.
+    # 2. Build, and K1's check builds for phases 3 and 5.
     t0 = time.perf_counter()
-    libs = build.build_all(build.KERNELS, verbose=True)
+    libs = build.build_all([*build.KERNELS, K1_CHECK, K1_CHECK_NOFMA],
+                           verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{', '.join(p.name for p in libs.values())}")
+    for name in ("radiance", K1_CHECK, "grad"):
+        sass_opcodes(libs[name])
 
     # 3. K1 vs plain.
     base = RenderSettings(use_cornell_box=True, has_hdr=False)
@@ -2459,6 +2825,7 @@ def main() -> int:
           f"pixels off by >1e-3, max {img_err.max():.4g}")
     assert (img_err > 1e-3).any(axis=-1).mean() <= 0.02
     assert img_err.mean() <= 2e-3
+    cuts = k1_cut_checks(dev, libs, base, cam)
 
     # 4. Render path.
     r = Renderer(WIDTH, HEIGHT, settings=base)
@@ -2488,7 +2855,8 @@ def main() -> int:
     # 5. K1 times per pass (CUDA events), in turns: kernel, wrapper, plain,
     # plain, wrapper, kernel.  The kernel alone runs on tables packed once;
     # the wrapper also packs them on every pass (a few dozen small launches
-    # the host must enqueue).
+    # the host must enqueue).  Then, in turns, K1 against the check build's
+    # parent design and exact cuts alone (the same flags but the macro).
     s = r.settings
     args = (r.scene, s, r.camera, 1, r.fresnel_coef, r.fresnel_pow, 0)
     tables = (k1.pack_camera(r.camera, s, r.fresnel_coef, r.fresnel_pow),
@@ -2506,42 +2874,35 @@ def main() -> int:
               f"({rays / (sum(v) / len(v)) / 1e3:.1f} Mrays/s)")
     print(f"K1 {k1_ms:.4f} ms/pass, wrapper {k1_wrapper_ms:.4f}, plain "
           f"{k1_plain_ms:.4f}, {card}")
+    check = k1_check_launcher(libs[K1_CHECK], dev)
+    variants = {"parent design": lambda: check(*tables, K1_PARENT),
+                "exact cuts": lambda: check(*tables, K1_EXACT),
+                "K1 (exact cuts + kCornellFast)": lambda: k1.launch(*tables)}
+    tv = {name: [] for name in variants}
+    for name in [*variants, *reversed(variants)]:
+        tv[name].append(cuda_time_ms(variants[name], dev, iters=50))
+    k1_variant_ms = {name: sum(v) / len(v) for name, v in tv.items()}
+    for name, v in tv.items():
+        print(f"K1 instance {name}: {', '.join(f'{x:.4f}' for x in v)} ms/pass")
 
     # 6. K2 vs plain on the well-conditioned scene at a flip-free frame.
     benign = _benign_scene(dev)
     k2_err = 0.0
     sb = base.replace(width=64, height=32, samples_per_pass=2, bounces=4)
-    for frame in range(1, 25):
-        got, _ = k1.render_pass_cuda(benign, sb, cam, frame, 0.1, 3.0)
-        want, _ = k1.render_pass_reference(benign, sb, cam, frame, 0.1, 3.0)
-        if (got - want).abs().max().item() <= 1e-5:
-            break
-    else:
-        raise AssertionError("no flip-free frame in 1..24")
+    frame = flip_free_frame(benign, sb, cam)
     target = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 0.5, (sb.n_pixels, 3)).astype(np.float32)).to(dev)
     print(f"K2 vs plain, well-conditioned scene 64x32, frame {frame}:")
     for fc, fp, with_camera in ((0.1, 3.0, False), (0.4, 1.5, False),
                                 (0.1, 3.0, True)):
         a = (benign, sb, cam, target, frame, fc, fp, 0, with_camera)
-        got = k2.cornell_loss_grads(*a)
-        torch.cuda.synchronize()
-        want = k2.cornell_loss_grads_reference(*a)
-        print(f"  sliders ({fc}, {fp}), with_camera={with_camera}: loss "
-              f"{got[0].item():.6g} vs {want[0].item():.6g}")
-        rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
-        assert rel <= 1e-4, f"loss rel err {rel}"
-        for name, i, rtol, atol in (("dcolor", 1, 1e-2, 2e-4),
-                                    ("demission", 2, 1e-2, 2e-4),
-                                    ("dfresnel_coef", 3, 1e-2, 1e-6),
-                                    ("dfresnel_pow", 4, 1e-2, 1e-6)):
-            k2_err = max(k2_err, _close(name, got[i], want[i], rtol, atol))
-        if with_camera:
-            for name, rtol, atol in (("origin", 2e-2, 2e-6), ("yaw", 2e-2, 1e-5),
-                                     ("pitch", 2e-2, 1e-5),
-                                     ("fov_deg", 2e-2, 1e-6)):
-                k2_err = max(k2_err, _close(f"dcamera.{name}", getattr(got[5], name),
-                                            getattr(want[5], name), rtol, atol))
+        k2_err = max(k2_err, k2_small_check(a, f"sliders ({fc}, {fp}), "
+                                            f"with_camera={with_camera}"))
+    s35 = sb.replace(samples_per_pass=3, bounces=5)
+    frame35 = flip_free_frame(benign, s35, cam)
+    print(f"K2 vs plain at 3 spp x 5 bounces, frame {frame35}:")
+    k2_err = max(k2_err, k2_small_check(
+        (benign, s35, cam, target, frame35, 0.1, 3.0, 0, False), "sliders (0.1, 3.0)"))
 
     # 7. K2 at the full size on the Cornell scene.  The target: the Cornell
     # image with the light 1.5x brighter, rendered by K1 (frame 1).
@@ -2585,8 +2946,16 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4g}" for k, v in grad_err.items())
           + f"; gradient-norm rel err {norm_rel:.4g}")
     assert norm_rel <= GRAD_RTOL, f"K2 gradient-norm rel err {norm_rel}"
+    packed = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres),
+              s, target, 1, 0)
     planted = {name: _leaf_errors(grads, want[1:5])
                for name, grads in _planted_faults(got[1:5]).items()}
+    # A fault of the kernel itself: channel 1's unit-g sums scaled by
+    # channel 0's g.
+    faulty = k2.unpack(k2.launch(*packed, fault=True),
+                       scene.spheres.count, s.n_pixels)[0]
+    planted["kernel: channel 1 scaled by channel 0's g"] = _leaf_errors(
+        faulty[1:5], want[1:5])
     for name, err in planted.items():
         print(f"  planted fault, {name}: " + ", ".join(
             f"{k} {v:.4g}" for k, v in err.items()))
@@ -2594,8 +2963,6 @@ def main() -> int:
         assert v <= GRAD_RTOL, f"K2 {k} rel err {v} > {GRAD_RTOL}"
     for name, err in planted.items():
         assert max(err.values()) > GRAD_RTOL, f"{name} passes the check"
-    packed = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres),
-              s, target, 1, 0)
     for with_camera in (False, True):
         p1 = k2.launch(*packed, with_camera=with_camera)
         p2 = k2.launch(*packed, with_camera=with_camera)
@@ -2626,7 +2993,8 @@ def main() -> int:
     assert all(math.isfinite(x) for x in losses)
     print(f"training path: {STEPS} Adam steps at {WIDTH}x{HEIGHT}: loss "
           f"{losses[0]:.6g} -> {losses[-1]:.6g}, K2 launches {k2_launches}, "
-          f"{train_wall * 1e3:.3f} ms/step wall (loss read every step)")
+          f"{train_wall * 1e3:.3f} ms/step wall "
+          f"(loss read every step)")
     assert losses[-1] < 0.5 * losses[0], losses
 
     # 9. K2 times per loss + gradient step (CUDA events), in turns.
@@ -2638,14 +3006,17 @@ def main() -> int:
         loss = k2.cornell_loss(p, scene, s, cam, target, 1)
         torch.autograd.grad(loss, leaves)
 
-    timed = {"kernel": lambda: k2.launch(*packed),
-             "wrapper": wrapper,
-             "plain": lambda: k2.cornell_loss_grads_reference(*a)}
-    iters = {"kernel": 20, "wrapper": 20, "plain": 3}
+    timed = {"kernel": (lambda: k2.launch(*packed), 20),
+             "with_camera": (lambda: k2.launch(*packed, with_camera=True), 20),
+             "wrapper": (wrapper, 20),
+             "plain": (lambda: k2.cornell_loss_grads_reference(*a), 3)}
     t = {name: [] for name in timed}
-    for name in ("kernel", "wrapper", "plain", "plain", "wrapper", "kernel"):
-        t[name].append(cuda_time_ms(timed[name], dev, iters=iters[name]))
-    k2_ms, k2_wrapper_ms, k2_plain_ms = (sum(v) / len(v) for v in t.values())
+    for name in [*timed, *reversed(timed)]:
+        fn, n_iter = timed[name]
+        t[name].append(cuda_time_ms(fn, dev, iters=n_iter))
+    k2_times = {name: sum(v) / len(v) for name, v in t.items()}
+    k2_ms, k2_wrapper_ms, k2_plain_ms = (
+        k2_times[k] for k in ("kernel", "wrapper", "plain"))
     for name, v in t.items():
         print(f"K2 {name}: {', '.join(f'{x:.4f}' for x in v)} ms/step "
               f"({fwdbwd_rays / (sum(v) / len(v)) / 1e3:.1f} Mrays/s)")
@@ -2666,17 +3037,26 @@ def main() -> int:
     device_profile("render pass", r.render, 20)
     device_profile("train_step", lambda: sgd(p, scene, cam, target, 1), 20)
 
-    # 11. Bounds on this run's inputs (frame 1, default sliders).
-    tests, hits = live_steps(scene, s, cam, 1, 0.1, 3.0)
+    # 11. Bounds on this run's inputs (frame 1, default sliders): the work
+    # the kernels trace, its operations (CORNELL_OPS) and bytes; the
+    # per-pipe bound, the issue bound, and the parent design's work.
+    work = cornell_work(scene, s, cam, 1, 0.1, 3.0)
     ns, npx = scene.spheres.count, s.n_pixels
-    k1_bound = bound(ns, tests, hits, npx * 16)
-    k2_bytes = npx * 12 + 4 * (-(-npx // 128)) * k2.n_partials(ns, False)
-    k2_bound = bound(ns, tests, hits, k2_bytes, reverse=REV_STEP)
-    print(f"live steps at frame 1: {tests} sphere-test steps, {hits} hit "
-          f"steps of {npx * s.samples_per_pass * s.bounces}")
-    for name, (b_ms, by, ops), ms in (("K1", k1_bound, k1_ms), ("K2", k2_bound, k2_ms)):
-        print(f"{name} bound {b_ms:.4f} ms ({by}; ops {ops}), measured "
-              f"{ms:.4f} ms = {b_ms / ms:.1%} of bound")
+    print(f"work at frame 1: {work}")
+    k1_bound = bound(cornell_ops(work, ns, "k1"), npx * 16)
+    k2_bound = bound(cornell_ops(work, ns, "k2"), npx * 12)
+    parent_ops = cornell_ops(work, ns, "parent")
+    parent_k2_ops = {k: v + work["steps"] * REV_STEP.get(k, 0)
+                     for k, v in parent_ops.items()}
+    for name, (b_ms, by, i_ms), ms, parent in (
+            ("K1", k1_bound, k1_ms, bound(parent_ops, npx * 16)),
+            ("K2", k2_bound, k2_ms, bound(parent_k2_ops, npx * 12))):
+        print(f"{name} bound {b_ms:.4f} ms ({by}), measured {ms:.4f} ms = "
+              f"{b_ms / ms:.1%} of bound; issue bound {i_ms:.4f} ms = "
+              f"{i_ms / ms:.1%}; the parent design's work: {parent[0]:.4f} ms "
+              f"per pipe, {parent[2]:.4f} ms issue")
+    print(f"K1 ops {cornell_ops(work, ns, 'k1')}, K2 ops "
+          f"{cornell_ops(work, ns, 'k2')}, {card}")
 
     mesh_rows = mesh_phases(
         dev, card,
@@ -2695,9 +3075,15 @@ def main() -> int:
         "launches": k1_launches,
         "max_abs_err": k1_err,
         "ms": k1_ms,
+        "wrapper_ms": k1_wrapper_ms,
+        "instance_ms": k1_variant_ms,
+        "cuts_bit_identical_nofma": cuts["nofma"],
+        "cuts_elements_apart_fma": cuts["fma_apart"],
+        "fault_no_fresnel_outliers": cuts["fault"],
         "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
+        "bound_issue_ms": k1_bound[2],
         "library_ms": None,
     }, {
         "name": "K2 loss + gradients",
@@ -2710,9 +3096,13 @@ def main() -> int:
         "grad_rel_err_1024": grad_err,
         "grad_norm_rel_err_1024": norm_rel,
         "ms": k2_ms,
+        "with_camera_ms": k2_times["with_camera"],
+        "wrapper_ms": k2_wrapper_ms,
+        "train_step_wall_ms": step_wall * 1e3,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
+        "bound_issue_ms": k2_bound[2],
         "library_ms": None,
     }, *mesh_rows, k3c_row, k4_row, *c5_rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,12 @@ The file imports no jax, so on a machine with a card it runs on its own:
 
 Contract of K1 against the plain version (two differently compiled
 programs flip discrete branches on grazing rays): fewer than 1% of rgb
-elements off by more than 1e-5, and depth within 1e-3.  K2 is held to the
+elements off by more than 1e-5, and depth within 1e-3, also where
+specular walls make every hit a Fresnel surface.  K2 is held to the
 gradient tolerances of tests/test_pallas_grad.py on that file's
 well-conditioned scene, at a frame where K1 and its plain version agree on
-every rgb element (a flipped branch moves the sums by a whole path).
+every rgb element (a flipped branch moves the sums by a whole path), at 2
+spp x 4 and 3 spp x 5 bounces; its planted channel fault must break them.
 K3 (which walks the mesh's compressed copy, ``accel/wide.py``) and K3b
 are held to chip_smoke.py's traversal contract against the plain
 ``traverse`` and ``brute_force``: hit/miss agrees on all but 1e-5 of the
@@ -247,6 +249,8 @@ def test_k2_matches_plain(grad_case, sliders, with_camera):
 
 
 def test_k2_repeat_launches_bit_identical(grad_case):
+    """K2 reduces its row in the kernel in a fixed order: two launches give
+    the same [K] row bit for bit."""
     scene, s, cam, target, frame = grad_case
     tables = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres))
     for with_camera in (False, True):
@@ -254,8 +258,41 @@ def test_k2_repeat_launches_bit_identical(grad_case):
         a = k2.launch(*tables, s, target, frame, 0, with_camera)
         b = k2.launch(*tables, s, target, frame, 0, with_camera)
         assert k2.launch.count == before + 2
-        assert a.shape == (s.n_pixels // 128, k2.n_partials(7, with_camera))
+        assert a.shape == (k2.n_partials(7, with_camera),)
         assert torch.equal(a, b)
+
+
+def test_k2_channel_fault_breaks_contract(grad_case):
+    """The instance with the planted fault (channel 1's unit-g sums scaled
+    by channel 0's g) keeps the loss and fails the dcolor tolerance that
+    the real kernel meets."""
+    scene, s, cam, target, frame = grad_case
+    args = (scene, s, cam, target, frame, 0.4, 1.5, 0, False)
+    _, want = _assert_k2_matches_plain(args)
+    tables = (k1.pack_camera(cam, s, 0.4, 1.5), k1.pack_spheres(scene.spheres))
+    row = k2.launch(*tables, s, target, frame, 0, fault=True)
+    bad = k2.unpack(row, scene.spheres.count, s.n_pixels)[0]
+    torch.testing.assert_close(bad[0], want[0], rtol=1e-4, atol=0.0)
+    assert not torch.allclose(bad[1], want[1], rtol=1e-2, atol=2e-4)
+
+
+def test_k2_three_samples_five_bounces_matches_plain(cuda):
+    """3 spp x 5 bounces: 15 records a pixel, one sample's at a time."""
+    scene, s, cam, target, frame = _grad_case(cuda, samples_per_pass=3, bounces=5)
+    _assert_k2_matches_plain((scene, s, cam, target, frame, 0.1, 3.0, 0, False))
+
+
+def test_k1_with_specular_walls_matches_plain(cuda):
+    """Walls with a non-zero specular colour are Fresnel surfaces, where
+    cut (a) is not taken: K1 still holds its contract."""
+    s = vpt.RenderSettings(**SMALL)
+    scene, cam = Scene.analytic(s, cuda), Camera.default(cuda)
+    spec = scene.spheres.spec_color.clone()
+    spec[(spec == 0).all(dim=1)] = 0.3
+    walls = scene.replace_spheres(spec_color=spec)
+    for frame in (1, 2):
+        _assert_contract(k1.render_pass_cuda(walls, s, cam, frame, 0.1, 3.0),
+                         k1.render_pass_reference(walls, s, cam, frame, 0.1, 3.0))
 
 
 def test_k2_odd_size_and_loss_matches_k1(cuda):

@@ -5,7 +5,10 @@ plain C entry point, compiled for Hopper (``sm_90a``) at first use into
 ``_build/`` (git-ignored) under a file name keyed by a hash of the sources
 and flags, so an edited source builds anew and an unchanged one is reused.
 Nothing is built at import.  ``build_all`` starts one ``nvcc`` per source
-at once.
+at once; a target may also be ``(name, extra_flags)``, a build of the same
+source with more flags into a library of its own (``chip_smoke.py`` builds
+K1's check instances, ``-DVPT_CHECK_INSTANCES``, with and without FMA
+contraction; ``cornell_cuts.py`` each mix of the inexact cuts).
 
 No ``--use_fast_math``: the kernels keep IEEE division and square root so
 they stay comparable with their plain PyTorch versions.
@@ -57,28 +60,41 @@ def _sources(name: str) -> list[pathlib.Path]:
     return [src, *sorted(CSRC.glob("*.cuh"))]
 
 
-def library_path(name: str) -> pathlib.Path:
-    """Where the library built from the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(target) -> tuple[str, tuple[str, ...]]:
+    """``name`` or ``(name, extra_flags)`` as ``(name, extra_flags)``."""
+    if isinstance(target, str):
+        return target, ()
+    name, extra = target
+    return name, tuple(extra)
+
+
+def library_path(target) -> pathlib.Path:
+    """Where the library built from the current sources lives (``target``:
+    a kernel name, or ``(name, extra_flags)``)."""
+    name, extra = _target(target)
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *extra]).encode())
     for p in _sources(name):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names, verbose: bool = False) -> dict:
-    """Compile ``csrc/<name>.cu`` for each name whose library from the same
-    sources does not exist yet, one ``nvcc`` process per source, all started
-    together.  Returns ``{name: library path}``; raises with nvcc's output
-    if any build fails."""
-    libs = {name: library_path(name) for name in names}
+def build_all(targets, verbose: bool = False) -> dict:
+    """Compile ``csrc/<name>.cu`` for each target (a name, or ``(name,
+    extra_flags)``) whose library from the same sources and flags does not
+    exist yet, one ``nvcc`` process per target, all started together.
+    Returns ``{target: library path}``; raises with nvcc's output if any
+    build fails."""
+    libs = {target: library_path(target) for target in targets}
     jobs = []
-    for name, lib in libs.items():
+    for target, lib in libs.items():
         if lib.is_file():
             continue
+        name, extra = _target(target)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, lib, tmp, cmd, proc))

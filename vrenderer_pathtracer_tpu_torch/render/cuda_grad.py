@@ -9,8 +9,8 @@ package's ``parallel/sharding.py`` loss on one device).  This module:
 
 * ``cornell_loss_grads_reference`` — the plain version: torch autograd of
   ``generate_rays`` + ``integrator.render_pass`` under that loss;
-* ``launch`` — K2 on packed tables, returning its per-block partials;
-  ``launch.count`` counts kernel launches;
+* ``launch`` — K2 on packed tables, returning its reduced row of sums;
+  ``launch.count`` counts kernel launches; ``unpack`` reads the row;
 * ``cornell_loss_grads`` — the wrapper.  CPU tensors take the plain
   version; CUDA tensors launch K2 (built at first use) or raise;
 * ``CornellLoss`` / ``cornell_loss`` — the loss as an autograd node:
@@ -38,10 +38,10 @@ from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
     pack_camera, pack_spheres, render_pass_reference)
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 
-# Each block keeps K = 3 + 6*Ns (+12) columns of 128 floats in shared
-# memory; 64 spheres (204 KB with the camera) fit the 227 KB a block may
-# take.  A thread keeps one record per (sample, bounce), at most 16
-# (csrc/grad.cu kMaxRecords).
+# Each block keeps K + 6 columns of 128 floats in shared memory, K = 3 +
+# 6*Ns (+12); 64 spheres (206 KiB with the camera) fit the 227 KiB a block
+# may take.  A launch takes at most 16 (sample, bounce) steps a pixel
+# (csrc/grad.cu kMaxRecords); a thread keeps one sample's records at a time.
 MAX_SPHERES = 64
 MAX_RECORDS = 16
 
@@ -98,22 +98,26 @@ def _k2():
     from vrenderer_pathtracer_tpu_torch.kernels import build
 
     lib = build.load("grad")
-    block_size = lib.vpt_grad_block_size
-    block_size.argtypes, block_size.restype = [], ctypes.c_int
+    workspace = lib.vpt_grad_workspace_floats
+    workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    workspace.restype = ctypes.c_longlong
     fn = lib.vpt_grad
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32, i32,
-                   ptr, ptr, ptr]
+                   ptr, ptr, ptr, i32, ptr]
     fn.restype = ctypes.c_int
-    return fn, block_size()
+    return fn, workspace
 
 
 def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
            target: torch.Tensor, frame: int, seed: int = 0,
-           with_camera: bool = False) -> torch.Tensor:
+           with_camera: bool = False, fault: bool = False) -> torch.Tensor:
     """Launch K2 on packed tables (``cuda_radiance.pack_camera`` /
-    ``pack_spheres``) on the current stream; returns the per-block partials
-    ``[n_blocks, K]`` (see ``csrc/grad.cu`` for the layout)."""
+    ``pack_spheres``) on the current stream; returns the reduced row ``[K]``
+    of sums (see ``csrc/grad.cu`` for the layout and :func:`unpack`).
+    ``fault`` launches the instance with a planted fault (channel 1's
+    unit-g sums scaled by channel 0's g; material-only), for
+    ``chip_smoke.py``'s check that the contract catches it."""
     device = cam.device
     n = settings.n_pixels
     for name, t, shape in (("cam", cam, (14,)), ("spheres", sph, None),
@@ -131,24 +135,42 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
     records = settings.samples_per_pass * settings.bounces
     if not 0 < records <= MAX_RECORDS:
         raise ValueError(f"K2 takes 1..{MAX_RECORDS} samples x bounces, not {records}")
+    if fault and with_camera:
+        raise ValueError("K2's planted fault is material-only")
 
-    fn, block = _k2()
-    partials = torch.empty((-(-n // block), n_partials(sph.shape[0], with_camera)),
-                           dtype=torch.float32, device=device)
+    fn, workspace = _k2()
+    k = n_partials(sph.shape[0], with_camera)
+    work = torch.empty((workspace(n, k),), dtype=torch.float32, device=device)
+    row = torch.empty((k,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = fn(cam.data_ptr(), sph.data_ptr(), sph.shape[0],
                  seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
                  int(frame) & 0xFFFFFFFF, settings.width, settings.height,
                  settings.samples_per_pass, settings.bounces, int(with_camera),
-                 target.data_ptr(), partials.data_ptr(),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 target.data_ptr(), work.data_ptr(), row.data_ptr(),
+                 int(fault), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
     launch.count += 1
-    return partials
+    return row
 
 
 launch.count = 0
+
+
+def unpack(row: torch.Tensor, n_spheres: int, n_pixels: int):
+    """K2's row of sums as ``((loss, dcolor [Ns,3], demission [Ns,3],
+    dfresnel_coef, dfresnel_pow), dcam)``: ``dcam`` is the [12] cotangent
+    of (origin, view dir, cx, cy) when the row has the camera's sums, else
+    None."""
+    ns = n_spheres
+    if row.shape[0] not in (n_partials(ns, False), n_partials(ns, True)):
+        raise ValueError(f"a row of {row.shape[0]} sums is not K2's for {ns} spheres")
+    rows = row[1:1 + 6 * ns].reshape(ns, 6)
+    out = (row[0] * (1.0 / (n_pixels * 3)), rows[:, :3], rows[:, 3:],
+           row[1 + 6 * ns], row[2 + 6 * ns])
+    return out, (row[3 + 6 * ns:] if row.shape[0] == n_partials(ns, True)
+                 else None)
 
 
 def _camera_pullback(camera: Camera, settings: RenderSettings,
@@ -189,16 +211,12 @@ def cornell_loss_grads(scene: Scene, settings: RenderSettings, camera: Camera,
     with torch.no_grad():
         cam = pack_camera(camera, settings, fresnel_coef, fresnel_pow)
         sph = pack_spheres(scene.spheres)
-    total = launch(cam, sph, settings, target, frame, seed,
-                   with_camera).sum(dim=0)
-    ns = scene.spheres.count
-    rows = total[1:1 + 6 * ns].reshape(ns, 6)
-    out = (total[0] * (1.0 / (settings.n_pixels * 3)), rows[:, :3], rows[:, 3:],
-           total[1 + 6 * ns], total[2 + 6 * ns])
+    out, dcam = unpack(launch(cam, sph, settings, target, frame, seed,
+                              with_camera),
+                       scene.spheres.count, settings.n_pixels)
     if not with_camera:
         return out
-    return out + (_camera_pullback(camera, settings,
-                                   total[3 + 6 * ns:15 + 6 * ns]),)
+    return out + (_camera_pullback(camera, settings, dcam),)
 
 
 class CornellLoss(torch.autograd.Function):
