@@ -8,15 +8,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. Build: compile K1 (``csrc/radiance.cu``), K2 (``csrc/grad.cu``), K3,
    K3b and K3c (``csrc/traverse.cu``), K4 (``csrc/mesh.cu``), K5 (``csrc/paged.cu``)
    and K6 (``csrc/probe.cu``) of
-   ``vrenderer_pathtracer_tpu_torch`` from the sources, and K1's check
+   ``vrenderer_pathtracer_tpu_torch`` from the sources, K1's check
    build twice, with and without FMA contraction (``K1_CHECK``,
    ``K1_CHECK_NOFMA``: the shipped instance, the exact cuts alone, the
-   parent design and a planted fault), one ``nvcc`` each, started
-   together; print the seconds, ptxas' report (registers, spills and stack
-   frame of every kernel instance: K2's with and without the camera and
-   its fault, K4's direct and records modes and its direct-fault instances
-   among them) and the SASS instruction count of every K1 and K2
-   instance.
+   parent design and a planted fault), and K3b's
+   (``cuda_traverse.K3B_CHECK``: the parent K3b, two planted faults), one
+   ``nvcc``
+   each, started together; print the seconds, ptxas' report (registers,
+   spills and stack frame of every kernel instance: K2's with and without
+   the camera and its fault, K4's direct and records modes and its
+   direct-fault instances among them), the SASS instruction count of every
+   K1, K2 and K3b instance, and K3b's shipped ingredient mask.
 3. K1 vs plain: K1 against its plain PyTorch version on the card at
    256x256 (frames 1 and 3) and at the main path's 1024x1024, 2 spp,
    4 bounces; the port's ``Renderer`` on the card against the same
@@ -71,26 +73,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    traversal view (1024x512 primary rays from z = 28), a bounce-1 wave of
    the render path at 256x256, and the primary and bounce-1 waves of one
    1024x1024 pass; both against ``brute_force`` on a 1.5k-triangle sphere
-   with 64x64 rays; K3 against K3b.  Contract: see ``HIT_MISMATCH_FRAC``;
-   planted faults (``planted_traversal_faults``, K3's on a compressed copy
-   rebuilt from faulty records) must break it.
+   with 64x64 rays; K3, K3b and the parent K3b against the plain
+   ``traverse`` on 2^20 rays into an 8,000-triangle soup
+   (``write_soup``); K3 against K3b (the rays on another triangle
+   counted); the parent K3b (the check build) against the plain
+   ``traverse``, and K3b against the parent.  Contract: see
+   ``HIT_MISMATCH_FRAC``; planted faults (``planted_traversal_faults``, on
+   copies rebuilt from faulty records) must break it, and so must K3b's
+   own (``cuda_traverse.K3B_FAULTS``): a dropped fetch batch on the nm
+   sets, a cull at half the best t on the soup by ``SOUP_FAULT_MARGIN``
+   times the limit.
 14. Mesh render path: ``Renderer(1024, 1024)`` on the nm scene, 1 warm-up
    and 10 timed passes; K3's count must rise by ``bounces`` a pass, K3b's
    and the plain ``traverse``'s stay 0; the image is finite and the mesh
    lit.  Then the same renderer with the mesh's 8-wide tree dropped
    (``init_mesh``), 3 passes through K3b.  The port's ``Renderer`` on the
    card against the same scene on the CPU at 64x32.
-15. Times from CUDA events: K3 and K3b per primary wave (2M rays) and per
-   bounce wave, the wrapper, and the plain version at the bench's
-   traversal view and on one pass's waves; the nm pass through the
-   full-width and the compact chain (bit-identical images).
+15. Times from CUDA events: K3, K3b and the parent K3b per primary wave
+   (2M rays) and per bounce wave, the wrapper, and the plain version at
+   the bench's traversal view and on one pass's waves; the nm pass through
+   the full-width and the compact chain (bit-identical images); K3b
+   against the parent K3b in turns, wave by wave (``k3b_pair_turns``).
+   The SM clock and power draw are read before and after each timed K3b
+   loop.  The turns that chose K3b's ingredients and fetch constants are
+   ``k3b_cuts.py``'s.
 16. Where the time goes: a ``torch.profiler`` trace of 20 mesh passes.
 17. Bounds of K3 and K3b: node visits, box tests and triangle tests
    counted by the kernels on one pass's waves (see ``traversal_bound``);
    K3's with the compressed copy's bytes and the operations the work needs
    (``TRAV_OPS``) and, beside it, with the copy's decode
    (``TRAV_OPS_DECODE``) and on the float layout the walk read before
-   (``TRAV_OPS_FLOAT``).
+   (``TRAV_OPS_FLOAT``); K3b's on its own counted work and its copy
+   (``TRAV_OPS_BINARY``) and on the parent K3b's (``TRAV_OPS_FLOAT``).
 18. The K4 scenes (``k4_renderers``), each through the ``Renderer``'s
    entry points and resolving ``radiance_kernel == "cuda_mesh"``: the
    mesh-megakernel scene of ``bench.py::_mesh_megakernel_bench`` (the nm
@@ -172,11 +186,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 35. The K3 comparison: K3 on the single-level pack against K5 on the same
    four waves: the same triangle and hit/miss on every ray, exactly, which
    K5's gate fault of phase 29 must break; K3's time and bound.
-36. K6, the bf16 probe: against the plain chain at the check constants
-   (where the chain moves in both dtypes; float32 within 1e-4, bf16
-   bit-equal), at the probe's shapes and at 2^22 / 2^23 elements, with a
-   planted no-op kernel that must fail; then, at the probe's constants,
-   elements/s of each, their ratio, the SASS FMA opcodes.
+36. K6, the bf16 probe: at every chain count k against the plain chain at
+   the check constants (where the chain moves in both dtypes; float32
+   within 1e-4, bf16 bit-equal), at the probe's shapes, at 2^22 / 2^23
+   elements and at the ragged 2^22 + 6, with a planted no-op kernel that
+   must fail, at every k on both grids; then, at the probe's constants,
+   the sweep over k and the grid in turns (SM clock and power before and
+   after), the SASS FMA opcodes of every instance, the SM clock and power
+   sampled while the bf16 chain runs for 1.5 s, and elements/s of the
+   shipped k and grid of each dtype, their ratio.
 
 37. K3c (``csrc/traverse.cu``, K3 with win-time attribute capture) against
    its plain version (``traverse`` + ``capture_reference``) on the nm
@@ -372,6 +390,27 @@ MESH_PASSES, MESH_K3B_PASSES = 10, 3
 HIT_MISMATCH_FRAC = 1e-5
 GEOMETRY_MISMATCH_FRAC = 2e-5
 T_RTOL = 1e-4
+# Phase 13's triangle soup (write_soup), where K3b's half-distance cull
+# fault must break the contract by SOUP_FAULT_MARGIN times its limit.
+SOUP_TRIANGLES, SOUP_RAYS, SOUP_FAULT_MARGIN = 8000, 1 << 20, 10
+
+
+def write_soup(path, n, seed=5, side=1.5):
+    """An OBJ of ``n`` equilateral triangles of edge ``side`` (fixed seed):
+    centres uniform in [-10, 10]^3, orientations uniform.  Its leaves'
+    boxes overlap, so a walk's first hit is often not its nearest, which
+    the cull on pop must not drop; its triangles are well conditioned, so
+    that two programs' roundings keep to the contract's t rtol."""
+    rng = np.random.default_rng(seed)
+    rot, _ = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    ang = np.array([0.0, 2 * np.pi / 3, 4 * np.pi / 3])
+    corners = side / np.sqrt(3) * np.stack([np.cos(ang), np.sin(ang),
+                                            np.zeros(3)], 1)
+    v = rng.uniform(-10, 10, (n, 1, 3)) + np.einsum("nij,cj->nci", rot, corners)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v.reshape(-1, 3)]
+    lines += [f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}" for k in range(n)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 # Operations per unit of traversal work: the node visits, box tests and
 # triangle tests the kernels count (one FP32 add, multiply, min, max or
 # compare each, a fused multiply-add 2, as the FP32 rate counts it; the
@@ -421,19 +460,45 @@ def _least_work(a, b):
 
 
 TRAV_OPS = _least_work(TRAV_OPS_DECODE, TRAV_OPS_FLOAT)
-TRAV_TABLES = {"copy": TRAV_OPS, "decode": TRAV_OPS_DECODE, "float": TRAV_OPS_FLOAT}
+# TRAV_OPS_BINARY, K3b's walk on its binary copy (csrc/traverse.cu
+# traverse_binary_kernel, the shipped instance), counted from its source.
+# A node visit: the loop's test and branch, the counter, the node's 64-bit
+# address (2), the hit tests' predicate and branch (2), the register's
+# select, and either the push of the farther child (its link's select, the
+# key's mask, the stack's bound test, the entry's address, the stack
+# pointer) or a pop (the stack's test, the pointer, the entry's address,
+# the key's mask, the branch): 5 INT32, so ~13 INT32 a visit; the near/far
+# compare, and the key's max on a push or the cull's compare on a pop: 2
+# FP32.  A box (slab) test of a non-empty child: 6 subtractions, 6
+# multiplications, 12 min/max and a compare (25 FP32), none fusable, and 2
+# INT32 (the count test, the counter).  A triangle: the test (TRAV_OPS's
+# 56 FP32 and 1 SFU, 16 fused pairs) and ~5 INT32 (the loop's test,
+# increment and branch, the row's address, the counter), and its share of
+# its leaf's ~11 (the link's decode, the loop's bounds, the pop after it;
+# ~3 a triangle at the nm sphere's 3.37 triangles a leaf): ~8 INT32.  The
+# warp's refill and fetch run once a ray, not a visit, and are not counted.
+# The parent K3b (its slab test is the float one, ~30 INT32 a visit) is
+# counted by TRAV_OPS_FLOAT.
+TRAV_OPS_BINARY = {"fp32_per_box": 25, "fp32_per_visit": 2, "fp32_per_tri": 56,
+                   "sfu_per_tri": 1, "int32_per_visit": 13, "int32_per_box": 2,
+                   "int32_per_tri": 8, "fma_per_box": 0, "fma_per_visit": 0,
+                   "fma_per_tri": 16}
+TRAV_TABLES = {"copy": TRAV_OPS, "decode": TRAV_OPS_DECODE, "float": TRAV_OPS_FLOAT,
+               "binary": TRAV_OPS_BINARY}
 
 
 def trav_ops(visits, boxes, tris, layout="copy"):
     """The operations of a walk's counted work, per type: what the work
     needs (``layout`` "copy", TRAV_OPS), with the compressed copy's decode
-    ("decode", TRAV_OPS_DECODE), or on the float layout ("float",
-    TRAV_OPS_FLOAT)."""
+    ("decode", TRAV_OPS_DECODE), on the float layout ("float",
+    TRAV_OPS_FLOAT, the parent K3b's too), or K3b's walk on its binary
+    copy ("binary", TRAV_OPS_BINARY)."""
     t = TRAV_TABLES[layout]
     return {"fp32": (boxes * t["fp32_per_box"] + visits * t["fp32_per_visit"]
                      + tris * t["fp32_per_tri"]),
             "sfu": tris * t["sfu_per_tri"],
-            "int32": visits * t["int32_per_visit"] + boxes * t["int32_per_box"],
+            "int32": (visits * t["int32_per_visit"] + boxes * t["int32_per_box"]
+                      + tris * t.get("int32_per_tri", 0)),
             "fma": (boxes * t["fma_per_box"] + visits * t["fma_per_visit"]
                     + tris * t["fma_per_tri"])}
 
@@ -879,9 +944,9 @@ def planted_traversal_faults(mesh, slot):
     every leaf skipped; the last inner child of every node dropped (the far
     one for rays along the node's sort axis); and, a rare fault, the one
     leaf that holds triangle ``slot`` dropped, so only the rays that would
-    hit that leaf go wrong.  K3 walks the compressed copy, so its copy is
-    built anew from the faulty records (``with_copy``).  Slots still index
-    the same triangles."""
+    hit that leaf go wrong.  K3 and K3b walk their copies, so the copies
+    are built anew from the faulty records (``with_copy``).  Slots still
+    index the same triangles."""
     import dataclasses
 
     from vrenderer_pathtracer_tpu_torch.accel.mesh import with_copy
@@ -907,8 +972,7 @@ def planted_traversal_faults(mesh, slot):
            int((mesh.tri_pack[:, 9] == slot).nonzero()[0, 0]))
     node, child = ((cnt > 0) & (ref <= row) & (row < ref + cnt)).nonzero()[0]
     dropped[node, child, 1] = -1
-    rebuild = with_copy if name == "nodes8_i" else (lambda m: m)
-    return {what: rebuild(dataclasses.replace(mesh, **{name: r.reshape(recs.shape)}))
+    return {what: with_copy(dataclasses.replace(mesh, **{name: r.reshape(recs.shape)}))
             for what, r in (("last triangle of every leaf skipped", short),
                             ("last inner child of every node dropped", pruned),
                             (f"the leaf of triangle {slot} dropped", dropped))}
@@ -942,9 +1006,10 @@ def wide_array_bytes(tree):
 def mesh_read_bytes(mesh, wide, layout="copy"):
     """Bytes of the mesh arrays K3 (``wide``) or K3b reads, each once.  K3:
     the compressed copy, every node and leaf row (``copy_bytes``), or for
-    ``layout`` "float" the float layout's (``float_layout_bytes``).  K3b: a
-    node's 48-byte box row and 16-byte record, and 36 bytes (v0, e1, e2)
-    for each leaf slot."""
+    ``layout`` "float" the float layout's (``float_layout_bytes``).  K3b
+    ("binary"): its copy's 64-byte node and a 48-byte row for each leaf
+    slot; the parent K3b ("float"): a node's 48-byte box row and 16-byte
+    record, and 36 bytes (v0, e1, e2) for each leaf slot."""
     from vrenderer_pathtracer_tpu_torch.accel.mesh import MAX_LEAF
 
     if wide:
@@ -952,10 +1017,13 @@ def mesh_read_bytes(mesh, wide, layout="copy"):
             return float_layout_bytes(mesh.nodes8_i)
         return copy_bytes(mesh.nodes8_c, mesh.leaf_rows)
     cnt = mesh.nodes_i.view(-1, 2, 2)[..., 1]
-    return cnt.shape[0] * (48 + 16) + 36 * int(cnt.clamp(0, MAX_LEAF).sum())
+    slots = int(cnt.clamp(0, MAX_LEAF).sum())
+    if layout == "binary":
+        return cnt.shape[0] * 64 + 48 * slots
+    return cnt.shape[0] * (48 + 16) + 36 * slots
 
 
-def traversal_bound(mesh, wide, waves, layout="copy"):
+def traversal_bound(mesh, wide, waves, layout="copy", launch=None):
     """(bound_ms, bound_by, work, bytes, issue_ms) of K3 (``wide``) or K3b
     over one pass's ``waves``: per wave the larger of the bytes over the
     memory rate and, per operation type, the operations over the card's
@@ -964,18 +1032,18 @@ def traversal_bound(mesh, wide, waves, layout="copy"):
     and t (8) for every ray, and reads origin and direction (24) only where
     t_max > 0: a dead lane returns after reading t_max.  The mesh is read
     once a pass (``mesh_read_bytes``, charged to the first wave): it stays
-    in L2 between waves.  The work is what the kernel itself counts on
-    these rays, its operations what that work needs (TRAV_OPS).  ``layout``
-    "decode": the same with the compressed copy's decode (TRAV_OPS_DECODE);
-    "float": the bytes and operations of the same work on the float layout
-    the walk read before (TRAV_OPS_FLOAT), whose slab test K3b's binary
-    walk shares."""
+    in L2 between waves.  The work is what ``launch`` (K3's or K3b's by
+    default) itself counts on these rays, its operations what that work
+    needs (TRAV_OPS).  ``layout`` "decode": the same with the compressed
+    copy's decode (TRAV_OPS_DECODE); "float": the bytes and operations of
+    the same work on the float layout the walk read before
+    (TRAV_OPS_FLOAT), whose slab test the parent K3b shares; "binary":
+    K3b's walk on its copy (TRAV_OPS_BINARY)."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
 
-    launch = k3.launch_k3 if wide else k3.launch_k3b
+    if launch is None:
+        launch = k3.launch_k3 if wide else k3.launch_k3b
     mesh_bytes = mesh_read_bytes(mesh, wide, layout)
-    if not wide:  # K3b's slab test is the float one
-        layout = "float"
     total, by_ops, work, n_bytes, issue = 0.0, 0.0, [0, 0, 0], 0, 0.0
     for i, (o, d, t) in enumerate(waves):
         stats = torch.zeros(3, dtype=torch.int64, device=o.device)
@@ -993,6 +1061,86 @@ def traversal_bound(mesh, wide, waves, layout="copy"):
         by_ops += t_ops if t_ops >= t_bytes else 0.0
     return (total * 1e3, "operations" if by_ops >= total / 2 else "bytes",
             work, n_bytes, issue * 1e3)
+
+
+# Rounds of phase 15's turns of K3b against the parent K3b.
+K3B_TURNS = 4
+
+
+def smi_clocks():
+    """The card's SM clock, its maximum and the power draw, as nvidia-smi
+    reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "n/a"
+
+
+def smi_under_load(fn, seconds=1.5):
+    """Call ``fn`` over and over for ``seconds`` while nvidia-smi samples the
+    SM clock and power draw every 20 ms; the samples taken while the card
+    ran, as (MHz, W) pairs."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate()[0]
+    pairs = []
+    for line in out.strip().splitlines():
+        try:
+            mhz, watts = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        pairs.append((mhz, watts))
+    # Drop the samples from before the loop started (the first 0.3 s).
+    return pairs[15:] if len(pairs) > 20 else pairs
+
+
+def k3b_pair_turns(binary, waves, dev, card):
+    """Phase 15's turns of K3b against the parent K3b (both from the check
+    build, whose K3b is the shipped source) on each wave of one pass, K3B_TURNS rounds, the order reversed every other
+    round, with the SM clock and power before and after.  Returns
+    {"K3b"/"parent": (pass ms mean, [per-wave ms means], [pass ms per
+    round])}."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    # Both from the check build, each launch prepared once, so that the
+    # host's work stays below the sparsest wave's launch.
+    launch = {name: [k3.k3b_check_launcher(binary, *w, variant) for w in waves]
+              for name, variant in (("K3b", 0), ("parent", k3.K3B_PARENT))}
+    names = list(launch)
+    t = {name: [[] for _ in waves] for name in names}
+    before = smi_clocks()
+    for r in range(K3B_TURNS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            for w in range(len(waves)):
+                t[name][w].append(cuda_time_ms(launch[name][w], dev, iters=30,
+                                               warmup=1))
+    after = smi_clocks()
+    print(f"K3b against the parent K3b in turns ({K3B_TURNS} rounds, ms a wave "
+          f"and a pass, the spread in brackets; SM clock, max, power before: "
+          f"{before}; after: {after}), {card}:")
+    out = {}
+    for name in names:
+        per_round = [sum(t[name][w][r] for w in range(len(waves)))
+                     for r in range(K3B_TURNS)]
+        out[name] = (float(np.mean(per_round)), [float(np.mean(x)) for x in t[name]],
+                     per_round)
+        print(f"  {name:7s} pass {np.mean(per_round):.4f} "
+              f"({min(per_round):.4f}-{max(per_round):.4f}); waves "
+              + ", ".join(f"{np.mean(x):.4f} ({min(x):.4f}-{max(x):.4f})"
+                          for x in t[name]))
+    return out
 
 
 def chain_pairs(r, s, dev, card, pairs=CHAIN_PAIRS):
@@ -1047,8 +1195,10 @@ def mesh_phases(dev, card, rays_per_pass_of):
     work_dir = BUILD_DIR / "smoke"
     work_dir.mkdir(parents=True, exist_ok=True)
     nm_obj, small_obj = str(work_dir / "nm_sphere.obj"), str(work_dir / "small.obj")
+    soup_obj = str(work_dir / "soup.obj")
     write_uv_sphere(nm_obj, *NM_SPHERE)
     write_uv_sphere(small_obj, *SMALL_SPHERE)
+    write_soup(soup_obj, SOUP_TRIANGLES)
     t0 = time.perf_counter()
     r = nm_renderer(nm_obj, WIDTH, HEIGHT, dev)
     setup_s = time.perf_counter() - t0
@@ -1073,10 +1223,17 @@ def mesh_phases(dev, card, rays_per_pass_of):
     bounce1_256 = capture_waves(small)[1]
     main_waves = capture_waves(r)
     assert len(main_waves) == s.bounces
+    # Rays from random points around and inside the sphere in random
+    # directions (fixed seed).
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    ro = (torch.rand((65536, 3), generator=gen) * 60 - 30).to(dev)
+    rd = torch.randn((65536, 3), generator=gen).to(dev)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).contiguous()
     sets = {"bench view 1024x512": (bo, bd, bt),
             "bounce-1 wave 256^2": bounce1_256,
             "primary wave 1024^2": main_waves[0],
-            "bounce-1 wave 1024^2": main_waves[1]}
+            "bounce-1 wave 1024^2": main_waves[1],
+            "random rays 65536": (ro, rd, torch.full((65536,), 1e6, device=dev))}
     print("K3/K3b vs the plain traverse on the card "
           f"(limits: hit/miss {HIT_MISMATCH_FRAC:g}, other triangle "
           f"{GEOMETRY_MISMATCH_FRAC:g} of the rays, t rtol {T_RTOL:g}):")
@@ -1103,6 +1260,51 @@ def mesh_phases(dev, card, rays_per_pass_of):
             a = agreement(f"{kname}, {what}", mesh,
                           k3.traverse_cuda(bad, o, d, t), want, t)
             assert not traversal_contract(a), f"{kname}, {what} passes"
+    # K3b's own planted faults (the check build), each on the sets where
+    # it must break the contract.  The dropped batch holds the set's centre
+    # ray (the bench view's centre row: 32 of 524,288 rays, where the limit
+    # allows 5).  The half-distance cull drops a stacked subtree only where
+    # the first hit the walk finds is not the nearest, which near-to-far
+    # order makes rare on the convex sphere (on the primary wave 52 rays of
+    # 2M, where 41 are allowed): it must break the contract on the soup,
+    # whose overlapping leaves make such rays common, by SOUP_FAULT_MARGIN
+    # times the limit (rays from 30 away at random points of its cube).
+    soup = pack_mesh(load_obj(soup_obj), device=dev)
+    soup_b = soup.without_wide()
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    so = torch.randn((SOUP_RAYS, 3), generator=gen)
+    so = 30 * so / so.norm(dim=1, keepdim=True)
+    sd = torch.rand((SOUP_RAYS, 3), generator=gen) * 16 - 8 - so
+    so, sd = so.to(dev), (sd / sd.norm(dim=1, keepdim=True)).to(dev).contiguous()
+    st = torch.full((SOUP_RAYS,), 1e6, device=dev)
+    soup_want = trav.traverse(soup, so, sd, st)
+    print(f"triangle soup, {soup.tri_count.item()} triangles, {SOUP_RAYS} rays "
+          f"into its cube:")
+    for kname, m in (("K3", soup), ("K3b", soup_b)):
+        check_hits(f"{kname} soup", soup, k3.traverse_cuda(m, so, sd, st),
+                   soup_want, st)
+    check_hits("K3b parent soup", soup,
+               k3.k3b_check_launcher(soup_b, so, sd, st, k3.K3B_PARENT)(), soup_want, st)
+    centres = {"bench view 1024x512": 256 * 1024 + 512,
+               "primary wave 1024^2": HEIGHT // 2 * WIDTH + WIDTH // 2,
+               "random rays 65536": 32768}
+    half_cull, drop = k3.K3B_FAULTS.values()
+    print("K3b's planted faults against the plain traverse:")
+    for name, fault_ray in centres.items():
+        fo, fd, ft = sets[name]
+        a = agreement(f"K3b, the batch holding ray {fault_ray} dropped, {name}",
+                      mesh, k3.k3b_check_launcher(binary, fo, fd, ft, drop,
+                                                  fault_ray=fault_ray)(),
+                      wants[name], ft)
+        assert not traversal_contract(a), f"K3b's dropped batch passes on {name}"
+        agreement(f"K3b, a pop culls at 0.5x the best t, {name}", mesh,
+                  k3.k3b_check_launcher(binary, fo, fd, ft, half_cull)(), wants[name], ft)
+    a = agreement("K3b, a pop culls at 0.5x the best t, soup", soup,
+                  k3.k3b_check_launcher(soup_b, so, sd, st, half_cull)(), soup_want, st)
+    print(f"    {a['geometry_mismatch'] / GEOMETRY_MISMATCH_FRAC:.1f}x the limit of "
+          f"rays on another triangle (the fault must reach {SOUP_FAULT_MARGIN}x)")
+    assert a["geometry_mismatch"] + a["hit_mismatch"] >= \
+        SOUP_FAULT_MARGIN * GEOMETRY_MISMATCH_FRAC, "K3b's half-distance cull passes"
     sm = pack_mesh(load_obj(small_obj), device=dev)
     so, sd = (x.contiguous() for x in generate_rays(
         Camera.default(dev).replace(origin=torch.tensor([0.0, 0.0, 40.0],
@@ -1118,6 +1320,19 @@ def mesh_phases(dev, card, rays_per_pass_of):
         assert all(torch.equal(x, y) for x, y in zip(
             k3.traverse_cuda(m, o, d, t), k3.traverse_cuda(m, o, d, t))), kname
     print("K3 and K3b repeat launches bit-identical")
+    # K3b's check build: the parent K3b held to the same contract; the
+    # shipped K3b against the parent; K3 and K3b winner by winner.
+    print("The parent K3b vs the plain traverse, K3b vs the parent, K3 vs K3b:")
+    for name, (o, d, t) in sets.items():
+        parent = k3.k3b_check_launcher(binary, o, d, t, k3.K3B_PARENT)()
+        check_hits(f"K3b parent, {name}", mesh, parent, wants[name], t)
+        check_hits(f"K3b vs the parent K3b, {name}", mesh,
+                   k3.traverse_cuda(binary, o, d, t), parent, t)
+        a = agreement(f"K3 vs K3b, {name}", mesh, k3.traverse_cuda(mesh, o, d, t),
+                      k3.traverse_cuda(binary, o, d, t), t)
+        print(f"    K3 and K3b: {round(a['geometry_mismatch'] * a['rays'])} rays "
+              f"on another triangle, {round(a['hit_mismatch'] * a['rays'])} "
+              f"hit/miss apart, of {a['rays']}")
 
     # 14. The mesh render path: K3 only, bounces launches a pass.
     k1.launch.count = k2.launch.count = 0
@@ -1172,6 +1387,13 @@ def mesh_phases(dev, card, rays_per_pass_of):
     chain_pairs(r, s, dev, card)
 
     prim, bounce = main_waves[0], main_waves[1]
+
+    parents = {id(w): k3.k3b_check_launcher(binary, *w, k3.K3B_PARENT)
+               for w in main_waves}
+
+    def parent(w):
+        return parents[id(w)]()
+
     timed = {
         "K3 primary": (lambda: k3.launch_k3(mesh, *prim), 20),
         "K3 bounce-1": (lambda: k3.launch_k3(mesh, *bounce), 20),
@@ -1179,63 +1401,119 @@ def mesh_phases(dev, card, rays_per_pass_of):
         "K3b primary": (lambda: k3.launch_k3b(binary, *prim), 20),
         "K3b bounce-1": (lambda: k3.launch_k3b(binary, *bounce), 20),
         "K3b pass (4 waves)": (lambda: [k3.launch_k3b(binary, *w) for w in main_waves], 10),
+        "parent K3b primary": (lambda: parent(prim), 20),
+        "parent K3b bounce-1": (lambda: parent(bounce), 20),
+        "parent K3b pass (4 waves)": (lambda: [parent(w) for w in main_waves], 10),
         "wrapper primary": (lambda: k3.traverse_cuda(mesh, *prim), 20),
         "plain bench view": (lambda: trav.traverse(mesh, bo, bd, bt), 1),
         "plain pass (4 waves)": (lambda: [trav.traverse(mesh, *w) for w in main_waves], 1),
     }
     t = {name: [] for name in timed}
+    clocks = [smi_clocks()]
     for name in [*timed, *reversed(timed)]:
         fn, iters = timed[name]
         t[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    clocks.append(smi_clocks())
     ms = {name: sum(v) / len(v) for name, v in t.items()}
     for name, v in t.items():
         print(f"{name}: {', '.join(f'{x:.4f}' for x in v)} ms")
+    print(f"  SM clock, max, power before the loop: {clocks[0]}; after: {clocks[1]}")
     print(f"K3 {ms['K3 primary']:.4f} ms per primary wave ({prim[0].shape[0]} "
           f"rays, {prim[0].shape[0] / ms['K3 primary'] / 1e3:.1f} Mrays/s), "
           f"{ms['K3 bounce-1']:.4f} per bounce-1 wave; K3b "
-          f"{ms['K3b primary']:.4f} / {ms['K3b bounce-1']:.4f}; plain at the "
-          f"bench view {ms['plain bench view']:.2f} ms, {card}")
+          f"{ms['K3b primary']:.4f} / {ms['K3b bounce-1']:.4f} (the parent K3b "
+          f"{ms['parent K3b primary']:.4f} / {ms['parent K3b bounce-1']:.4f}); "
+          f"plain at the bench view {ms['plain bench view']:.2f} ms, {card}")
+    # K3b against the parent K3b in turns, wave by wave (the turns that
+    # chose K3b's ingredients and fetch constants are k3b_cuts.py's).
+    turns = k3b_pair_turns(binary, main_waves, dev, card)
+    spread = max(turns["K3b"][2]) - min(turns["K3b"][2])
+    gain = turns["parent"][0] - turns["K3b"][0]
+    print(f"  K3b faster than the parent by {gain:.4f} ms a pass "
+          f"({gain / spread if spread else float('inf'):.1f}x the turns' spread "
+          f"{spread:.4f})")
 
     # 17. Bounds on one pass's waves.
     rows = []
-    for kname, m, wide, launches in (("K3", mesh, True, k3_launches),
-                                     ("K3b", binary, False, k3b_launches)):
-        b_ms, by, work, n_bytes, i_ms = traversal_bound(m, wide, main_waves)
-        k_ms = ms[f"{kname} pass (4 waves)"]
-        print(f"{kname} bound per pass {b_ms:.4f} ms ({by}; node visits "
-              f"{work[0]}, box tests {work[1]}, triangle tests {work[2]}, "
-              f"bytes {n_bytes} of which mesh {mesh_read_bytes(m, wide)}, "
-              f"live rays {[int((w[2] > 0).sum()) for w in main_waves]}), "
-              f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound; issue "
-              f"bound {i_ms:.4f} ms = {i_ms / k_ms:.1%}")
-        if wide:
-            d_ms, d_by = traversal_bound(m, wide, main_waves, "decode")[:2]
-            f_ms, f_by, _, f_bytes, _ = traversal_bound(m, wide, main_waves,
-                                                        "float")
-            print(f"  {kname} bound with the copy's decode: {d_ms:.4f} ms "
-                  f"({d_by}, TRAV_OPS_DECODE), {d_ms / k_ms:.1%} of the "
-                  f"measured time; on the float layout it read before: "
-                  f"{f_ms:.4f} ms ({f_by}; bytes {f_bytes} of which mesh "
-                  f"{mesh_read_bytes(m, wide, 'float')}, TRAV_OPS_FLOAT), "
-                  f"{f_ms / k_ms:.1%} of the measured time")
-        rows.append({
-            "name": f"{kname} {'8-wide' if wide else 'binary'} BVH traversal",
-            "route": "cuda",
-            "source": "vrenderer_pathtracer_tpu_torch/csrc/traverse.cu",
-            "replaces": ("vrenderer_pathtracer_tpu/accel/pallas_traverse.py:"
-                         + ("173" if wide else "109")),
-            "launches": launches,
-            "max_abs_err": max_err[kname],
-            "ms": k_ms,
-            "ms_primary_wave": ms[f"{kname} primary"],
-            "ms_bounce1_wave": ms[f"{kname} bounce-1"],
-            "plain_ms": ms["plain pass (4 waves)"],
-            "bound_ms": b_ms,
-            "bound_by": by,
-            "bound_issue_ms": i_ms,
-            **({"bound_ms_decode": d_ms} if wide else {}),
-            "library_ms": None,
-        })
+    b_ms, by, work, n_bytes, i_ms = traversal_bound(mesh, True, main_waves)
+    k_ms = ms["K3 pass (4 waves)"]
+    print(f"K3 bound per pass {b_ms:.4f} ms ({by}; node visits "
+          f"{work[0]}, box tests {work[1]}, triangle tests {work[2]}, "
+          f"bytes {n_bytes} of which mesh {mesh_read_bytes(mesh, True)}, "
+          f"live rays {[int((w[2] > 0).sum()) for w in main_waves]}), "
+          f"measured {k_ms:.4f} ms = {b_ms / k_ms:.1%} of bound; issue "
+          f"bound {i_ms:.4f} ms = {i_ms / k_ms:.1%}")
+    d_ms, d_by = traversal_bound(mesh, True, main_waves, "decode")[:2]
+    f_ms, f_by, _, f_bytes, _ = traversal_bound(mesh, True, main_waves, "float")
+    print(f"  K3 bound with the copy's decode: {d_ms:.4f} ms "
+          f"({d_by}, TRAV_OPS_DECODE), {d_ms / k_ms:.1%} of the "
+          f"measured time; on the float layout it read before: "
+          f"{f_ms:.4f} ms ({f_by}; bytes {f_bytes} of which mesh "
+          f"{mesh_read_bytes(mesh, True, 'float')}, TRAV_OPS_FLOAT), "
+          f"{f_ms / k_ms:.1%} of the measured time")
+    rows.append({
+        "name": "K3 8-wide BVH traversal",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/traverse.cu",
+        "replaces": "vrenderer_pathtracer_tpu/accel/pallas_traverse.py:173",
+        "launches": k3_launches,
+        "max_abs_err": max_err["K3"],
+        "ms": k_ms,
+        "ms_primary_wave": ms["K3 primary"],
+        "ms_bounce1_wave": ms["K3 bounce-1"],
+        "plain_ms": ms["plain pass (4 waves)"],
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "bound_issue_ms": i_ms,
+        "bound_ms_decode": d_ms,
+        "library_ms": None,
+    })
+    # K3b: the bound on this design's counted work (TRAV_OPS_BINARY, its
+    # copy's bytes) and on the parent K3b's (TRAV_OPS_FLOAT, the float
+    # arrays' bytes), each against both designs' times.
+    k_ms, p_ms = ms["K3b pass (4 waves)"], ms["parent K3b pass (4 waves)"]
+    b_ms, by, work, n_bytes, i_ms = traversal_bound(binary, False, main_waves,
+                                                    "binary")
+    pb_ms, pby, pwork, p_bytes, pi_ms = traversal_bound(
+        binary, False, main_waves, "float",
+        launch=lambda m, o, d, tm, stats: k3.k3b_check_launcher(
+            m, o, d, tm, k3.K3B_PARENT, stats=stats)())
+    print(f"K3b bound per pass on its work {b_ms:.4f} ms ({by}; node visits "
+          f"{work[0]}, box tests {work[1]}, triangle tests {work[2]}, bytes "
+          f"{n_bytes} of which mesh {mesh_read_bytes(binary, False, 'binary')},"
+          f" TRAV_OPS_BINARY), issue bound {i_ms:.4f}; measured {k_ms:.4f} ms"
+          f" = {b_ms / k_ms:.1%} of bound, {i_ms / k_ms:.1%} of the issue bound")
+    print(f"  the parent K3b's work: bound {pb_ms:.4f} ms ({pby}; node visits "
+          f"{pwork[0]}, box tests {pwork[1]}, triangle tests {pwork[2]}, bytes "
+          f"{p_bytes}, TRAV_OPS_FLOAT), issue bound {pi_ms:.4f}; the parent "
+          f"measured {p_ms:.4f} ms = {pb_ms / p_ms:.1%} of its bound, "
+          f"{pi_ms / p_ms:.1%} of its issue bound; the new K3b "
+          f"{pb_ms / k_ms:.1%} / {pi_ms / k_ms:.1%} of the parent work's "
+          f"bounds")
+    rows.append({
+        "name": "K3b binary BVH traversal",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/traverse.cu",
+        "replaces": "vrenderer_pathtracer_tpu/accel/pallas_traverse.py:109",
+        "launches": k3b_launches,
+        "max_abs_err": max_err["K3b"],
+        "ms": k_ms,
+        "ms_primary_wave": ms["K3b primary"],
+        "ms_bounce1_wave": ms["K3b bounce-1"],
+        "ms_waves": turns["K3b"][1],
+        "parent_ms": p_ms,
+        "parent_ms_waves": turns["parent"][1],
+        "turns_pass_ms": {k: v[0] for k, v in turns.items()},
+        "work": work,
+        "parent_work": pwork,
+        "plain_ms": ms["plain pass (4 waves)"],
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "bound_issue_ms": i_ms,
+        "bound_ms_parent_work": pb_ms,
+        "bound_issue_ms_parent_work": pi_ms,
+        "library_ms": None,
+    })
     return rows
 
 
@@ -1900,6 +2178,8 @@ GRAD_REL_L2, GRAD_TIGHT_FRAC = 5e-3, 0.995
 # card-filling ones: float32 within probe.F32_RTOL (the FMA against two
 # roundings a step), bf16 bit-equal; the planted no-op kernel must fail.
 K6_N = 1 << 22
+# A size with a ragged tail at every chain count above 2 (both dtypes).
+K6_RAGGED = (1 << 22) + 6
 # A packed __hfma2 does two bf16 FMAs in one instruction at the FP32 FMA
 # issue rate: 2 x 67 TFLOP/s (NVIDIA's Hopper architecture white paper,
 # 133.8 TFLOP/s non-tensor FP16/BF16).
@@ -2057,7 +2337,8 @@ def sass_opcodes(lib):
         ops = re.findall(r"\b(FFMA|HFMA2(?:\.[A-Z0-9_]+)*|FMUL|FADD)\b", chunk)
         counts = {op: ops.count(op) for op in sorted(set(ops))}
         total = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", chunk, re.M))
-        print(f"  SASS {name[:72]}: {total} instructions, {counts}")
+        # The mangled name's end holds the template arguments.
+        print(f"  SASS ...{name[-64:]}: {total} instructions, {counts}")
 
 
 def config5_phases(dev, card, work_dir):
@@ -2356,41 +2637,37 @@ def config5_phases(dev, card, work_dir):
           f"visits {k3work[0]}, box tests {k3work[1]}, triangle tests "
           f"{k3work[2]}), {card}")
 
-    # 36. K6, the elementwise-rate probe.
+    # 36. K6, the elementwise-rate probe: every chain count against the
+    # plain chain, at the probe's shapes, the card-filling ones and a
+    # ragged size (a tail at every k above 2), and the planted no-op.
     k6.launch_k6.count = 0
     k6_err = 0.0
     gen = torch.Generator(device="cpu").manual_seed(6)
     print(f"K6 vs the plain chain at c = {k6.CHECK_C}, a = {k6.CHECK_A} "
-          f"(float32 rtol {k6.F32_RTOL:g}, bf16 bit-equal):")
+          f"(float32 rtol {k6.F32_RTOL:g}, bf16 bit-equal), k chains a "
+          f"thread {k6.CHAINS}:")
     for shape, dtype in (((256, 128), torch.float32), ((512, 128), torch.bfloat16),
-                         ((K6_N,), torch.float32), ((2 * K6_N,), torch.bfloat16)):
+                         ((K6_N,), torch.float32), ((2 * K6_N,), torch.bfloat16),
+                         ((K6_RAGGED,), torch.float32),
+                         ((K6_RAGGED,), torch.bfloat16)):
         x = (torch.rand(shape, generator=gen) + 0.5).to(dev, dtype)
         want = k6.chain_reference(x, k6.CHECK_C, k6.CHECK_A)
-        ok, err, rel = k6.chain_agreement(
-            k6.launch_k6(x, k6.CHECK_C, k6.CHECK_A), want)
+        for k in k6.CHAINS:
+            for grid in k6.GRIDS:
+                ok, err, rel = k6.chain_agreement(
+                    k6.launch_k6(x, k6.CHECK_C, k6.CHECK_A, k=k, grid=grid), want)
+                print(f"  K6 {dtype} {tuple(shape)} k={k} {grid} grid (vectors, "
+                      f"tail {k6.vector_split(x.numel(), dtype, k)}): max abs "
+                      f"err {err:.3g}, rel {rel:.3g}, {'ok' if ok else 'FAILS'}")
+                assert ok, f"K6 {dtype} {tuple(shape)} k={k} {grid}"
+                k6_err = max(k6_err, err)
         bad, _, bad_rel = k6.chain_agreement(
             k6.launch_k6(x, k6.CHECK_C, k6.CHECK_A, fault=1), want)
-        print(f"  K6 {dtype} {tuple(shape)}: max abs err {err:.3g}, rel "
-              f"{rel:.3g}, {'ok' if ok else 'FAILS'}; planted no-op kernel: "
-              f"rel {bad_rel:.3g}, {'passes' if bad else 'caught'}")
-        assert ok, f"K6 {dtype} {tuple(shape)}"
+        print(f"    planted no-op kernel: rel {bad_rel:.3g}, "
+              f"{'passes' if bad else 'caught'}")
         assert not bad, f"K6's no-op fault passes at {dtype} {tuple(shape)}"
-        k6_err = max(k6_err, err)
     xf = torch.rand(K6_N, generator=gen).to(dev) + 0.5
     xb = (torch.rand(2 * K6_N, generator=gen) + 0.5).to(dev, torch.bfloat16)
-    k6.launch_k6.count = 0  # the probe's own launches: the timed ones
-    timed = {"f32": (lambda: k6.launch_k6(xf), 20),
-             "bf16": (lambda: k6.launch_k6(xb), 20),
-             "plain f32": (lambda: k6.chain_reference(xf), 2),
-             "plain bf16": (lambda: k6.chain_reference(xb), 2)}
-    tms6 = {name: [] for name in timed}
-    for name in [*timed, *reversed(timed)]:
-        fn, iters = timed[name]
-        tms6[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
-    ms6 = {name: sum(v) / len(v) for name, v in tms6.items()}
-    k6_launches = k6.launch_k6.count
-    f32_rate = K6_N / (ms6["f32"] * 1e-3)
-    bf16_rate = 2 * K6_N / (ms6["bf16"] * 1e-3)
     # Bounds: each element read and written once (4 or 2 bytes each way),
     # N_OPS FMAs (2 flops) an element.
     f32_flops, bf16_flops = K6_N * k6.N_OPS * 2, 2 * K6_N * k6.N_OPS * 2
@@ -2402,6 +2679,58 @@ def config5_phases(dev, card, work_dir):
     # as instructions: one a pair of elements (4 flops).
     bf16_issue_ms = max(bf16_flops / 4 / ISSUE_RATE,
                         2 * K6_N * 4 / HBM_BYTES_PER_S) * 1e3
+    # The sweep over k and the grid in turns, at the probe's constants.
+    sweep = {(dt, k, g): [] for dt in ("f32", "bf16") for k in k6.CHAINS
+             for g in k6.GRIDS}
+    clocks = [smi_clocks()]
+    for rnd in range(4):
+        for dt, k, g in (list(sweep) if rnd % 2 == 0 else list(sweep)[::-1]):
+            x = xf if dt == "f32" else xb
+            sweep[(dt, k, g)].append(cuda_time_ms(
+                lambda: k6.launch_k6(x, k=k, grid=g), dev, iters=20, warmup=1))
+    clocks.append(smi_clocks())
+    print(f"K6 sweep over k and the grid at the probe's constants, ms a launch "
+          f"(float32 2^22, bf16 2^23 elements; bound float32 "
+          f"{f32_bound_ms:.4f}, bf16 {bf16_bound_ms:.4f}; SM clock, max, power "
+          f"before: {clocks[0]}; after: {clocks[1]}), {card}:")
+    for (dt, k, g), v in sweep.items():
+        bound_ms = f32_bound_ms if dt == "f32" else bf16_bound_ms
+        print(f"  {dt:4s} k={k} {g:6s}: {', '.join(f'{x:.4f}' for x in v)} "
+              f"(mean {np.mean(v):.4f}, {bound_ms / np.mean(v):.1%} of bound)")
+    best = {dt: min(((k, g) for k in k6.CHAINS for g in k6.GRIDS),
+                    key=lambda kg: np.mean(sweep[(dt, *kg)]))
+            for dt in ("f32", "bf16")}
+    print(f"  fastest: float32 k={best['f32'][0]} {best['f32'][1]} grid (shipped "
+          f"{k6.K_F32} {k6.GRID_F32}), bf16 k={best['bf16'][0]} "
+          f"{best['bf16'][1]} grid (shipped {k6.K_BF16} {k6.GRID_BF16})")
+    sass_opcodes(build.library_path("probe"))
+    # The SM clock while the shipped bf16 chain runs on and on.
+    load = smi_under_load(lambda: k6.launch_k6(xb))
+    if load:
+        mhz, watts = (np.array(x) for x in zip(*load))
+        print(f"K6 bf16 under load ({len(load)} nvidia-smi samples): SM clock "
+              f"{mhz.min():.0f}-{mhz.max():.0f} MHz (median {np.median(mhz):.0f}),"
+              f" power {watts.min():.1f}-{watts.max():.1f} W, {card}")
+        k6_clock = float(np.median(mhz))
+    else:
+        print("K6 under load: nvidia-smi gave no samples (not measured)")
+        k6_clock = None
+    # The shipped k of each dtype against the plain chain, in turns.
+    k6.launch_k6.count = 0  # the probe's own launches: the timed ones
+    timed = {"f32": (lambda: k6.launch_k6(xf), 20),
+             "bf16": (lambda: k6.launch_k6(xb), 20),
+             "plain f32": (lambda: k6.chain_reference(xf), 2),
+             "plain bf16": (lambda: k6.chain_reference(xb), 2)}
+    tms6 = {name: [] for name in timed}
+    clocks = [smi_clocks()]
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        tms6[name].append(cuda_time_ms(fn, dev, iters=iters, warmup=1))
+    clocks.append(smi_clocks())
+    ms6 = {name: sum(v) / len(v) for name, v in tms6.items()}
+    k6_launches = k6.launch_k6.count
+    f32_rate = K6_N / (ms6["f32"] * 1e-3)
+    bf16_rate = 2 * K6_N / (ms6["bf16"] * 1e-3)
     for name, v in tms6.items():
         print(f"K6 {name}: {', '.join(f'{x:.4f}' for x in v)} ms")
     print(f"K6: float32 {f32_rate / 1e9:.2f} G elements/s "
@@ -2409,8 +2738,8 @@ def config5_phases(dev, card, work_dir):
           f"{f32_bound_ms:.4f} ms), bf16 {bf16_rate / 1e9:.2f} G elements/s "
           f"({bf16_flops / (ms6['bf16'] * 1e-3) / 1e12:.2f} TFLOP/s, bound "
           f"{bf16_bound_ms:.4f} ms); bf16 / float32 elements/s "
-          f"{bf16_rate / f32_rate:.3f}, {card}")
-    sass_opcodes(build.library_path("probe"))
+          f"{bf16_rate / f32_rate:.3f}; SM clock, max, power before: "
+          f"{clocks[0]}; after: {clocks[1]}, {card}")
 
     return [{
         "name": "K5 paged BVH traversal",
@@ -2440,6 +2769,11 @@ def config5_phases(dev, card, work_dir):
         "f32_ms": ms6["f32"],
         "f32_bound_ms": f32_bound_ms,
         "bf16_over_f32_elements_per_s": bf16_rate / f32_rate,
+        "k": {"f32": k6.K_F32, "bf16": k6.K_BF16},
+        "grid": {"f32": k6.GRID_F32, "bf16": k6.GRID_BF16},
+        "k_sweep_ms": {f"{dt} k={k} {g}": float(np.mean(v))
+                       for (dt, k, g), v in sweep.items()},
+        "sm_clock_mhz_under_load": k6_clock,
         "plain_ms": ms6["plain bf16"],
         "bound_ms": bf16_bound_ms,
         "bound_by": "operations",
@@ -2778,6 +3112,7 @@ def main() -> int:
         return 1
     from vrenderer_pathtracer_tpu_torch import (
         Renderer, RenderSettings, TrainParams, opt_step, train_step)
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse
     from vrenderer_pathtracer_tpu_torch.core.camera import Camera
     from vrenderer_pathtracer_tpu_torch.kernels import build
     from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
@@ -2799,12 +3134,15 @@ def main() -> int:
 
     # 2. Build, and K1's check builds for phases 3 and 5.
     t0 = time.perf_counter()
-    libs = build.build_all([*build.KERNELS, K1_CHECK, K1_CHECK_NOFMA],
-                           verbose=True)
+    libs = build.build_all([*build.KERNELS, K1_CHECK, K1_CHECK_NOFMA,
+                            cuda_traverse.K3B_CHECK], verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{', '.join(p.name for p in libs.values())}")
-    for name in ("radiance", K1_CHECK, "grad"):
+    for name in ("radiance", K1_CHECK, "grad", cuda_traverse.K3B_CHECK):
         sass_opcodes(libs[name])
+    k3b_ship = cuda_traverse.k3b_ingredients()
+    print(f"K3b ships ingredient mask {k3b_ship} "
+          f"({', '.join(n for n, b in cuda_traverse.K3B_INGREDIENTS.items() if k3b_ship & b)})")
 
     # 3. K1 vs plain.
     base = RenderSettings(use_cornell_box=True, has_hdr=False)

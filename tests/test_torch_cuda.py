@@ -518,6 +518,82 @@ def test_k3_refuses_what_it_does_not_take(meshes):
     assert empty[0].shape == (0,)
 
 
+def _bounce_rays(mesh, o, d, t, seed=9):
+    """A bounce wave after (o, d, t): rays leaving the primary hits in
+    random directions, and dead lanes (t_max 0) where the primary ray
+    missed, as the integrator's waves hold them.  Each leaves from 1e-3
+    along its way, so that no ray rests on a self-hit at rounding distance
+    (t ~ TRI_EPS), whose t two programs that round the triangle test apart
+    give apart by more than the contract's rtol."""
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse
+
+    slot, hit_t = traverse(mesh, o, d, t)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nd = torch.randn(o.shape, generator=g).to(o.device)
+    nd = nd / nd.norm(dim=1, keepdim=True)
+    hit = slot >= 0
+    no = torch.where(hit[:, None], o + hit_t[:, None] * d + 1e-3 * nd, o)
+    nt = torch.where(hit, torch.full_like(t, 1e6), torch.zeros_like(t))
+    return no.contiguous(), nd.contiguous(), nt
+
+
+def test_k3b_matches_parent_and_plain_on_primary_and_bounce_waves(meshes):
+    """The redesigned K3b (persistent warps, cull, rows) against the parent
+    K3b of the check build and the plain traverse under the traversal
+    contract, on a primary and a bounce wave; the check build's own K3b
+    too."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse
+
+    card = meshes[0].without_wide()
+    prim = _mesh_rays("cuda", seed=13)
+    for o, d, t in (prim, _bounce_rays(card, *prim)):
+        got = k3.launch_k3b(card, o, d, t)
+        want = traverse(card, o, d, t)
+        _assert_traversal_contract(card, got, want, t)
+        _assert_traversal_contract(
+            card, got, k3.k3b_check_launcher(card, o, d, t, k3.K3B_PARENT)(), t)
+        _assert_traversal_contract(card, k3.k3b_check_launcher(card, o, d, t)(), want, t)
+
+
+def test_k3b_repeat_launches_bit_identical(meshes):
+    """Two launches in a row give the same result bit for bit: every launch
+    leaves its fetch counters zero (a stale count would leave rays untaken);
+    so does the check build's K3b, which shares the wrapper's workspace, on
+    the same stream, and on another stream with a workspace of its own."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+
+    card = meshes[0].without_wide()
+    o, d, t = _mesh_rays("cuda", seed=17)
+    first = k3.launch_k3b(card, o, d, t)
+    runs = [k3.launch_k3b(card, o, d, t), k3.k3b_check_launcher(card, o, d, t)(),
+            k3.launch_k3b(card, o, d, t)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs += [k3.launch_k3b(card, o, d, t), k3.launch_k3b(card, o, d, t)]
+    torch.cuda.current_stream().wait_stream(side)
+    for again in runs:
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    with pytest.raises(ValueError):
+        k3.k3b_check_launcher(card, o, d, t, 3)()
+
+
+def test_k3b_planted_faults_break_the_contract(meshes):
+    """The check build's faults (a cull at half the best distance, the
+    fetch dropping the batch of the first camera ray) break the contract."""
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
+    from vrenderer_pathtracer_tpu_torch.accel.traverse import traverse
+
+    card = meshes[0].without_wide()
+    o, d, t = _mesh_rays("cuda", seed=19)
+    want = traverse(card, o, d, t)
+    for fault in k3.K3B_FAULTS.values():
+        got = k3.k3b_check_launcher(card, o, d, t, fault, fault_ray=0)()
+        a = k3.hit_agreement(card, got, want, t)
+        assert a["hit_mismatch"] + a["geometry_mismatch"] > 1e-3, (fault, a)
+
+
 K3C_FIELDS = [("normal",), ("normal", "uv"), ("normal", "tangent"),
               ("normal", "uv", "tangent"), ("normal", "uv", "tangent", "smooth")]
 
@@ -969,6 +1045,24 @@ def test_k6_matches_plain_chain(cuda):
         probe.launch_k6(xb.reshape(-1)[:3].contiguous())
     with pytest.raises(ValueError):
         probe.launch_k6(xf.double())
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_k6_every_chain_count_matches_plain_chain(cuda, k):
+    """K6 at k chains a thread on each grid against the plain chain at the
+    check constants, float32 within probe.F32_RTOL and bf16 bit-equal, at a
+    ragged size (2^22 + 6: a tail at every k above 2)."""
+    from vrenderer_pathtracer_tpu_torch.kernels import probe
+
+    g = torch.Generator().manual_seed(k)
+    c, a = probe.CHECK_C, probe.CHECK_A
+    n = (1 << 22) + 6
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.rand(n, generator=g) + 0.5).to(cuda, dtype)
+        want = probe.chain_reference(x, c, a)
+        for grid in probe.GRIDS:
+            got = probe.launch_k6(x, c, a, k=k, grid=grid)
+            assert probe.chain_agreement(got, want)[0], (dtype, grid)
 
 
 def test_failed_paged_build_raises(cuda, monkeypatch, tmp_path):

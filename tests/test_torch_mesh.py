@@ -23,9 +23,10 @@ from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import (
     write_uv_sphere as t_write_uv_sphere)
 
 K4_PACKS = ("tri_aux_pack", "tri_nrm_pack")
-# The CUDA walk's compressed copy of the 8-wide tree: the port's own, held
-# to nodes8_*/tri_pack by tests/test_torch_wide_compact.py.
-KERNEL_COPY = ("nodes8_c", "leaf_rows")
+# The kernels' copies: the CUDA walk's of the 8-wide tree, held to
+# nodes8_*/tri_pack by tests/test_torch_wide_compact.py, and K3b's of the
+# binary tree, held to nodes_*/tri_* by tests/test_torch_binary_compact.py.
+KERNEL_COPY = ("nodes8_c", "leaf_rows", "nodes_c", "tri_rows")
 
 
 @pytest.fixture(scope="module")

@@ -68,3 +68,51 @@ def test_cpu_tensor_takes_the_plain_chain():
     assert torch.equal(got, probe.chain_reference(x, probe.CHECK_C, probe.CHECK_A))
     with pytest.raises(ValueError):
         probe.launch_k6(x)
+
+
+@pytest.mark.parametrize("k", probe.CHAINS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vector_split_covers_every_element_once(dtype, k):
+    per_unit = 2 if dtype == torch.bfloat16 else 1
+    for numel in (0, 2, 6, 64, 2 ** 22 + 6, 2 ** 23):
+        vectors, tail = probe.vector_split(numel, dtype, k)
+        assert 0 <= tail < k
+        assert (vectors * k + tail) * per_unit == numel
+    # The card tests' ragged size: a tail at every k above 2.
+    assert probe.vector_split(2 ** 22 + 6, torch.float32, 4) == (2 ** 20 + 1, 2)
+    assert probe.vector_split(2 ** 22 + 6, torch.bfloat16, 8) == (2 ** 18, 3)
+
+
+def test_wrapper_size_rules_before_the_device():
+    x = _inputs(torch.float32).reshape(-1)
+    xb = x.to(torch.bfloat16)
+    refused = {
+        "k outside 1, 2, 4, 8": lambda: probe.launch_k6(x, k=3),
+        "an odd bf16 count": lambda: probe.launch_k6(xb[:7].contiguous()),
+        "float64": lambda: probe.launch_k6(x.double()),
+        "a strided tensor": lambda: probe.launch_k6(x[::2]),
+        "an unknown grid": lambda: probe.launch_k6(x, grid="tiles"),
+    }
+    for what, call in refused.items():
+        with pytest.raises(ValueError) as e:
+            call()
+        assert "CUDA" not in str(e.value), what
+    for k in probe.CHAINS:  # sound arguments: refused only for the device
+        for grid in probe.GRIDS:
+            with pytest.raises(ValueError, match="CUDA"):
+                probe.launch_k6(xb[:2 * 8 * k + 6].contiguous(), k=k, grid=grid)
+
+
+def test_chain_of_a_ragged_size_is_its_pieces_chains():
+    """Each element's chain is its own: the plain chain of an array equals,
+    bit for bit, the plain chains of the kernel's whole vectors and of its
+    tail, which the kernel runs apart."""
+    c, a = probe.CHECK_C, probe.CHECK_A
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _inputs(dtype).reshape(-1)[:2 * 4 * 37 + 6]
+        whole = probe.chain(x, c, a)
+        vectors, _ = probe.vector_split(x.numel(), dtype, 4)
+        cut = vectors * 4 * (2 if dtype == torch.bfloat16 else 1)
+        pieces = torch.cat([probe.chain_reference(x[:cut], c, a),
+                            probe.chain_reference(x[cut:], c, a)])
+        assert torch.equal(whole, pieces), dtype

@@ -9,7 +9,8 @@ This module:
 
 * ``supports`` — the layouts the kernels take (the sparse 8-wide layout of
   ``accel/mesh.py`` with the kernels' compressed copy of it, which K3 and
-  K3c walk, or the binary nodes alone, which K3b walks);
+  K3c walk, or the binary tree with its copy, ``accel/binary.py``, which
+  K3b walks);
 * ``traverse_cuda`` — the wrapper, ``(slot [B] int32, t [B])`` with slot -1
   and t = t_max on a miss.  CPU tensors take the plain version
   (``accel/traverse.py::traverse``); CUDA tensors launch K3 when the mesh
@@ -20,7 +21,13 @@ This module:
 * ``launch_k3`` / ``launch_k3b`` — the launches; ``.count`` on each counts
   kernel launches, and ``launch_k3.capture_count`` those of K3c.  ``stats``
   (an int64 [3] CUDA tensor) makes the kernel add its node visits, box
-  tests and triangle tests to it;
+  tests and triangle tests to it.  K3b's persistent warps fetch rays in
+  batches from counters in a workspace the wrapper owns, one per stream,
+  which every launch leaves zero (``fetch_args``);
+* ``k3b_check_launcher`` — K3b's check build (``K3B_CHECK``): the
+  parent K3b and K3b's two planted faults (``K3B_FAULTS``), prepared for
+  ``chip_smoke.py``, ``k3b_cuts.py`` and the card tests; never on the main
+  path;
 * ``hit_agreement`` / ``capture_agreement`` — how two results on the same
   rays agree, the checks of the card tests and ``chip_smoke.py``.
 """
@@ -32,6 +39,7 @@ import functools
 
 import torch
 
+from vrenderer_pathtracer_tpu_torch.accel.binary import NODE_WORDS, TRI_ROW_WORDS
 from vrenderer_pathtracer_tpu_torch.accel.traverse import (
     CAPTURE_WIDTHS, capture_reference, traverse)
 from vrenderer_pathtracer_tpu_torch.accel.wide import CW_WORDS, ROW_WORDS
@@ -44,6 +52,27 @@ CAPTURE_FAULTS = {"u and v swapped in the interpolation": 1,
                   "the tangent left unnormalised": 2,
                   "the first winner's attributes kept after a closer hit": 3}
 
+# K3b's persistent warps fetch rays from one of 16 counters, 128 bytes
+# apart in a workspace of K3B_COUNTER_WORDS int32 (csrc/traverse.cu
+# kCounterWords, with the count of warps done); the batch and the refill
+# thresholds are constants of the source.
+K3B_COUNTER_WORDS = 17 * 32
+# K3b's check build (csrc/traverse.cu with -DVPT_CHECK_INSTANCES): its
+# vpt_traverse_binary_check launches the parent K3b (K3B_PARENT), the
+# build's own K3b (0) or one of its planted faults, by what each does
+# wrong (each must break the traversal contract).
+K3B_CHECK_FLAGS = ("-DVPT_CHECK_INSTANCES",)
+K3B_CHECK = ("traverse", K3B_CHECK_FLAGS)
+K3B_PARENT = -1
+K3B_FAULTS = {"a pop culls at 0.5x the best t": 1,
+              "the fetch drops the batch that holds a given ray": 2}
+# K3b's ingredient bits (csrc/traverse.cu kFetch, kCull, kRows).
+K3B_INGREDIENTS = {"persistent fetch": 1, "cull on pop": 2, "48-byte rows": 4}
+# The wrapper's workspaces, one per (device, stream), zeroed once: every
+# K3b launch leaves its workspace zero again (its last warp resets it).
+_workspaces: dict = {}
+
+
 def copy_supported(nodes8_c, leaf_rows) -> bool:
     """Whether a compressed copy (``accel/wide.py::compress_wide``) has the
     shapes the walk takes: nodes [M,20], leaf rows [R,12]."""
@@ -53,14 +82,26 @@ def copy_supported(nodes8_c, leaf_rows) -> bool:
             and leaf_rows.dim() == 2 and leaf_rows.shape[1] == ROW_WORDS)
 
 
+def binary_supported(mesh: MeshData) -> bool:
+    """Whether a mesh holds K3b's copy (``accel/binary.py``) in the shapes
+    K3b takes: nodes [M,16], one a binary node, and rows [T,12], one a
+    slot."""
+    nc, rows = mesh.nodes_c, mesh.tri_rows
+    return (nc is not None and rows is not None and nc.dim() == 2
+            and tuple(nc.shape) == (mesh.nodes_i.shape[0], NODE_WORDS)
+            and rows.dim() == 2
+            and tuple(rows.shape) == (mesh.tri_v0.shape[0], TRI_ROW_WORDS))
+
+
 def supports(mesh: MeshData) -> bool:
     """The layouts K3/K3b take: the sparse 8-wide tree with its leaf pack
     ([N*8,8] boxes, [N,16] records, [N] axes, [T8,16] pack) and the
-    kernels' compressed copy of it (K3 reads the copy alone), or none."""
+    kernels' compressed copy of it (K3 reads the copy alone), or the binary
+    tree with K3b's copy (K3b reads the copy alone)."""
     if mesh.paged is not None:
         return False
     if mesh.nodes8_f is None:
-        return True
+        return binary_supported(mesh)
     n = mesh.nodes8_i.shape[0] if mesh.nodes8_i is not None else -1
     return (mesh.nodes8_i is not None and mesh.nodes8_ax is not None
             and mesh.tri_pack is not None
@@ -78,11 +119,12 @@ def _lib():
     lib = build.load("traverse")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.vpt_traverse_wide.argtypes = [ptr] * 5 + [i32] + [ptr] * 4
-    lib.vpt_traverse_binary.argtypes = [ptr] * 8 + [i32] + [ptr] * 4
+    lib.vpt_traverse_binary.argtypes = [ptr] * 5 + [i32] + [ptr] * 4 + [i32, ptr]
     lib.vpt_traverse_capture.argtypes = ([ptr] * 5 + [i32] + [ptr] * 8 + [i32]
                                          + [ptr] * 4 + [i32, ptr])
+    lib.vpt_traverse_binary_ingredients.argtypes = []
     for fn in (lib.vpt_traverse_wide, lib.vpt_traverse_binary,
-               lib.vpt_traverse_capture):
+               lib.vpt_traverse_capture, lib.vpt_traverse_binary_ingredients):
         fn.restype = ctypes.c_int
     return lib
 
@@ -122,20 +164,32 @@ def _rays(ray_o, ray_d, t_max, device):
     return b
 
 
-def _run(fn, mesh_ptrs, ray_o, ray_d, t_max, stats, extra=()):
+def _prepare(fn, mesh_ptrs, ray_o, ray_d, t_max, stats, extra=()):
+    """``fn``'s outputs made and its arguments gathered once, on the current
+    stream: a call that launches it and returns ``(slot, t)``, the same
+    tensors at every call."""
     b, device = ray_o.shape[0], ray_o.device
     if stats is not None:
         _check("stats", stats, device, torch.int64, (3,))
     slot = torch.empty((b,), dtype=torch.int32, device=device)
     t = torch.empty((b,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = fn(*mesh_ptrs, ray_o.data_ptr(), ray_d.data_ptr(),
-                 t_max.data_ptr(), b, slot.data_ptr(),
-                 t.data_ptr(), None if stats is None else stats.data_ptr(),
-                 *extra, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"traversal launch failed: cudaError_t {err}")
-    return slot, t
+    args = (*mesh_ptrs, ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(),
+            b, slot.data_ptr(), t.data_ptr(),
+            None if stats is None else stats.data_ptr(), *extra,
+            torch.cuda.current_stream(device).cuda_stream)
+
+    def launch():
+        with torch.cuda.device(device):
+            err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"traversal launch failed: cudaError_t {err}")
+        return slot, t
+
+    return launch
+
+
+def _run(fn, mesh_ptrs, ray_o, ray_d, t_max, stats, extra=()):
+    return _prepare(fn, mesh_ptrs, ray_o, ray_d, t_max, stats, extra)()
 
 
 def _capture_args(mesh: MeshData, b, capture, fault):
@@ -197,27 +251,96 @@ launch_k3.count = 0
 launch_k3.capture_count = 0
 
 
-def launch_k3b(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None):
-    """Launch K3b (the binary SBVH) on the current stream."""
+def binary_ptrs(mesh: MeshData, device):
+    """K3b's copy's pointers, after checking what the walk reads (both are
+    read as 16-byte vectors)."""
+    _check("nodes_c", mesh.nodes_c, device, torch.int32,
+           (mesh.nodes_i.shape[0], NODE_WORDS), aligned=True)
+    _check("tri_rows", mesh.tri_rows, device, torch.float32,
+           (mesh.tri_v0.shape[0], TRI_ROW_WORDS), aligned=True)
+    return [mesh.nodes_c.data_ptr(), mesh.tri_rows.data_ptr()]
+
+
+def fetch_args(device):
+    """K3b's fetch arguments: the pointer to the current stream's workspace
+    of ``K3B_COUNTER_WORDS`` int32 (zeroed when made; every launch leaves
+    it zero) and its size.  A workspace serves one stream, whose launches
+    run in order."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros((K3B_COUNTER_WORDS,), dtype=torch.int32,
+                                       device=device)
+    return _workspaces[key].data_ptr(), K3B_COUNTER_WORDS
+
+
+def _binary_mesh(mesh: MeshData, ray_o, ray_d, t_max):
     device = mesh.device
     _rays(ray_o, ray_d, t_max, device)
-    m, r = mesh.nodes_i.shape[0], mesh.tri_v0.shape[0]
-    for name, dtype, shape in (("nodes_f", torch.float32, (m, 12)),
-                               ("nodes_i", torch.int32, (m, 4)),
-                               ("tri_v0", torch.float32, (r, 3)),
-                               ("tri_e1", torch.float32, (r, 3)),
-                               ("tri_e2", torch.float32, (r, 3))):
-        _check(name, getattr(mesh, name), device, dtype, shape, aligned=True)
-    out = _run(_lib().vpt_traverse_binary,
-               [mesh.nodes_f.data_ptr(), mesh.nodes_i.data_ptr(),
-                mesh.tri_v0.data_ptr(), mesh.tri_e1.data_ptr(),
-                mesh.tri_e2.data_ptr()],
-               ray_o, ray_d, t_max, stats)
+    if mesh.paged is not None or not binary_supported(mesh):
+        raise ValueError("K3b needs the binary tree's copy (accel/binary.py:"
+                         " nodes_c [M,16], tri_rows [T,12])")
+    return binary_ptrs(mesh, device)
+
+
+def launch_k3b(mesh: MeshData, ray_o, ray_d, t_max, *, stats=None):
+    """Launch K3b (the binary SBVH's copy) on the current stream."""
+    ptrs = _binary_mesh(mesh, ray_o, ray_d, t_max)
+    out = _run(_lib().vpt_traverse_binary, ptrs, ray_o, ray_d, t_max, stats,
+               fetch_args(mesh.device))
     launch_k3b.count += 1
     return out
 
 
 launch_k3b.count = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _check_lib(flags):
+    from vrenderer_pathtracer_tpu_torch.kernels import build
+
+    lib = ctypes.CDLL(str(build.build_all([("traverse", flags)])[("traverse", flags)]))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.vpt_traverse_binary_check.argtypes = ([ptr] * 10 + [i32] + [ptr] * 4
+                                              + [i32] * 3 + [ptr])
+    lib.vpt_traverse_binary_ingredients.argtypes = []
+    for fn in (lib.vpt_traverse_binary_check, lib.vpt_traverse_binary_ingredients):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def k3b_check_launcher(mesh: MeshData, ray_o, ray_d, t_max, variant=0, *,
+                       fault_ray=-1, stats=None, flags=()):
+    """K3b's check build, its arguments checked once: a call that launches
+    it on the current stream and returns ``(slot, t)`` (the same tensors
+    at every call), for timing loops whose host work must stay below a
+    sparse wave's launch.  ``variant``: 0 the build's K3b, ``K3B_PARENT``
+    the parent K3b (on the JAX-parity arrays), or a fault of
+    ``K3B_FAULTS`` (the dropped batch is the one that holds ray
+    ``fault_ray``).  ``flags``: more nvcc flags (``k3b_cuts.py``'s -D
+    choices), each set a library of its own.  Not counted in
+    ``launch_k3b.count``."""
+    if variant not in (0, K3B_PARENT, *K3B_FAULTS.values()):
+        raise ValueError(f"unknown K3b check variant {variant}")
+    ptrs = _binary_mesh(mesh, ray_o, ray_d, t_max)
+    device, m, r = mesh.device, mesh.nodes_i.shape[0], mesh.tri_v0.shape[0]
+    for name, shape in (("nodes_f", (m, 12)), ("nodes_i", (m, 4)),
+                        ("tri_v0", (r, 3)), ("tri_e1", (r, 3)), ("tri_e2", (r, 3))):
+        _check(name, getattr(mesh, name), device,
+               torch.int32 if name == "nodes_i" else torch.float32, shape,
+               aligned=True)
+    ptrs += [getattr(mesh, f).data_ptr() for f in
+             ("nodes_f", "nodes_i", "tri_v0", "tri_e1", "tri_e2")]
+    return _prepare(_check_lib((*K3B_CHECK_FLAGS, *flags)).vpt_traverse_binary_check,
+                    ptrs, ray_o, ray_d, t_max, stats,
+                    (*fetch_args(device), variant, fault_ray))
+
+
+def k3b_ingredients(flags=None) -> int:
+    """K3b's ingredient mask (csrc/traverse.cu kK3b: 1 persistent fetch, 2
+    cull on pop, 4 48-byte rows) in the shipped build, or with ``flags`` in
+    that check build; builds the library."""
+    lib = _lib() if flags is None else _check_lib((*K3B_CHECK_FLAGS, *flags))
+    return int(lib.vpt_traverse_binary_ingredients())
 
 
 def hit_agreement(mesh: MeshData, got, want, t_max, want_mesh=None) -> dict:

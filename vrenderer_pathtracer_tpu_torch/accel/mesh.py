@@ -8,7 +8,9 @@ The 8-wide collapse (``accel/wide.py``) is always built, in the sparse
 layout only: the JAX package's VMEM budgets, lane-dense switch and 20-bit
 record check are TPU artifacts.  Beside it, every pack holds the kernels'
 compressed copy of the same tree (``nodes8_c``, ``leaf_rows``:
-``accel/wide.py::compress_wide``), which is what the CUDA walk reads.
+``accel/wide.py::compress_wide``), which is what the CUDA walk reads, and
+K3b's copy of the binary tree (``nodes_c``, ``tri_rows``:
+``accel/binary.py::compress_binary``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from vrenderer_pathtracer_tpu_torch.accel.binary import compress_binary
 from vrenderer_pathtracer_tpu_torch.accel.wide import (
     build_leaf_packs, collapse_bvh8, compress_wide)
 from vrenderer_pathtracer_tpu_torch.native import FlatBVH, HostMesh, build_sbvh
@@ -26,9 +29,10 @@ from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData
 # Leaf capacity: the builder (csrc/sbvh.cc kMaxLeaf) forces splits above this,
 # giving the traversal loop a static triangle-test bound.
 MAX_LEAF = 8
-# Binary traversal stack depth (the plain ``traverse`` and K3b).  The
-# builder switches to index-balanced median splits at depth 48
-# (kSahDepthLimit), bounding total depth by 48 + ceil(log2(T)) < 80 for any
+# Binary traversal stack depth (the plain ``traverse`` and K3b, whose walk
+# stacks at most one entry a level: csrc/traverse.cu).  The builder
+# switches to index-balanced median splits at depth 48 (kSahDepthLimit),
+# bounding total depth by 48 + ceil(log2(T)) < 80 for any
 # T < 2^31, so 96 entries never overflow; ``_check_stack_bound`` raises if
 # the builder's reported depth ever says otherwise.
 STACK_DEPTH = 96
@@ -91,13 +95,23 @@ def binary_depth(nodes_i: np.ndarray) -> int:
 
 
 def with_copy(mesh: MeshData) -> MeshData:
-    """``mesh`` with its compressed copy built anew from its 8-wide arrays
-    (``nodes8_f``, ``nodes8_i``, ``tri_pack``), on the mesh's device."""
-    nodes, rows, _ = compress_wide(*(getattr(mesh, f).cpu().numpy() for f in
-                                     ("nodes8_f", "nodes8_i", "tri_pack")))
-    return dataclasses.replace(
-        mesh, nodes8_c=torch.from_numpy(nodes).to(mesh.device),
-        leaf_rows=torch.from_numpy(rows).to(mesh.device))
+    """``mesh`` with the kernels' copies built anew, on the mesh's device:
+    K3b's from the binary arrays (``nodes_f``, ``nodes_i``, ``tri_v0``,
+    ``tri_e1``, ``tri_e2``) and, where the mesh has its 8-wide tree, the
+    walk's compressed copy from ``nodes8_f``, ``nodes8_i``, ``tri_pack``."""
+    def arrays(*names):
+        return (getattr(mesh, f).cpu().numpy() for f in names)
+
+    def t(a):
+        return torch.from_numpy(a).to(mesh.device)
+
+    nodes_c, tri_rows = compress_binary(*arrays(
+        "nodes_f", "nodes_i", "tri_v0", "tri_e1", "tri_e2"))
+    mesh = dataclasses.replace(mesh, nodes_c=t(nodes_c), tri_rows=t(tri_rows))
+    if mesh.nodes8_f is None:
+        return mesh
+    nodes, rows, _ = compress_wide(*arrays("nodes8_f", "nodes8_i", "tri_pack"))
+    return dataclasses.replace(mesh, nodes8_c=t(nodes), leaf_rows=t(rows))
 
 
 def auto_paged(n_tris: int) -> bool:
@@ -159,6 +173,8 @@ def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
         corners(mesh.tangents).reshape(-1, 9))
 
     nodes8_c, leaf_rows, _ = compress_wide(n8f, n8i, tri_pack)
+    tv0, te1, te2 = pad(v0), pad(v1 - v0), pad(v2 - v0)
+    nodes_c, tri_rows = compress_binary(bvh.nodes_f, bvh.nodes_i, tv0, te1, te2)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -166,9 +182,9 @@ def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
     return MeshData(
         nodes_f=t(bvh.nodes_f),
         nodes_i=t(bvh.nodes_i),
-        tri_v0=t(pad(v0)),
-        tri_e1=t(pad(v1 - v0)),
-        tri_e2=t(pad(v2 - v0)),
+        tri_v0=t(tv0),
+        tri_e1=t(te1),
+        tri_e2=t(te2),
         tri_n=t(pad(corners(mesh.normals))),
         tri_t=t(pad(corners(mesh.tangents))),
         tri_uv=t(pad(corners(mesh.uvs))),
@@ -179,4 +195,6 @@ def pack_from_bvh(mesh: HostMesh, bvh: FlatBVH, pad_to: int = 128, *,
         tri_pack=t(tri_pack),
         nodes8_c=t(nodes8_c),
         leaf_rows=t(leaf_rows),
+        nodes_c=t(nodes_c),
+        tri_rows=t(tri_rows),
     )

@@ -35,7 +35,8 @@ def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
 
     The sparse single-level layout converts as it is, and the kernels'
     compressed copy is built from it (``accel/mesh.py::with_copy``); a
-    lane-dense JAX mesh is a TPU layout and raises.  The 8-wide tree is held to K3's stack
+    lane-dense JAX mesh is a TPU layout and raises.  K3b's copy of the
+    binary tree is built too.  The 8-wide tree is held to K3's stack
     bound, as ``accel/mesh.py::pack_from_bvh`` holds the port's own.  The
     TPU kernel's win-time capture packs (``tri_aux_pack``,
     ``tri_nrm_pack``) are not carried: K3c and K4 read tangents, normals
@@ -92,7 +93,7 @@ def mesh_from_numpy(mesh: Mapping[str, np.ndarray], *, device) -> MeshData:
         tri_pack=_opt_f32(mesh.get("tri_pack"), device),
     )
     _check_stack_bound(binary_depth(mesh["nodes_i"]))
-    return out if n8f is None else with_copy(out)
+    return with_copy(out)
 
 
 def scene_from_numpy(spheres: Mapping[str, np.ndarray], *, device, hdr=None,

@@ -8,7 +8,9 @@ Nothing is built at import.  ``build_all`` starts one ``nvcc`` per source
 at once; a target may also be ``(name, extra_flags)``, a build of the same
 source with more flags into a library of its own (``chip_smoke.py`` builds
 K1's check instances, ``-DVPT_CHECK_INSTANCES``, with and without FMA
-contraction; ``cornell_cuts.py`` each mix of the inexact cuts).
+contraction, and K3b's; ``cornell_cuts.py`` each mix of the inexact cuts;
+``k3b_cuts.py`` K3b's check build with each ingredient or fetch constant
+changed).
 
 No ``--use_fast_math``: the kernels keep IEEE division and square root so
 they stay comparable with their plain PyTorch versions.

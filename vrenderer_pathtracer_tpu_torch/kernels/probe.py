@@ -3,10 +3,13 @@
 Port of ``.bench/bf16_vpu.py``: a ``N_OPS``-step dependent chain
 ``v = v * c + a`` over every element, in float32 or bfloat16, which answers
 whether bf16 elementwise math runs at twice the float32 element rate.  The
-kernel is ``csrc/probe.cu`` (``fmaf`` a thread, or ``__hfma2`` on a packed
-pair a thread); ``chain_reference`` is its plain version.  ``launch_k6.count``
-counts kernel launches; ``launch_k6(fault=1)`` is the planted no-op kernel
-that ``chain_agreement`` must refuse.
+kernel is ``csrc/probe.cu``: ``k`` independent chains a thread, of float32
+elements (``fmaf``) or packed bf16 pairs (``__hfma2``), moved as one vector
+(:func:`vector_split` says which elements go in whole vectors and which in
+the kernel's ragged tail), over a grid of one wave or of one vector a
+thread (``GRIDS``); ``chain_reference`` is its plain version.
+``launch_k6.count`` counts kernel launches; ``launch_k6(fault=1)`` is the
+planted no-op kernel that ``chain_agreement`` must refuse.
 """
 
 from __future__ import annotations
@@ -31,6 +34,34 @@ CHECK_C, CHECK_A = 1.0078125, 0.0625
 # carries forward unamplified relative to the growing value, so the chains
 # differ by at most 512 * 2^-23 = 6.1e-5 of the value.
 F32_RTOL = 1e-4
+# Chains a thread, the kernel's template argument: 1, 2, 4 or 8; and the
+# grid: one wave of the blocks the card holds at once, each thread walking
+# the vectors with a stride ("wave"), or a block for every 256 vectors, one
+# a thread ("vector").  The shipped pair for each dtype is the fastest of
+# chip_smoke.py's sweep on an H100 (PERF.md).
+CHAINS = (1, 2, 4, 8)
+GRIDS = {"wave": 0, "vector": 1}
+K_F32, GRID_F32 = 2, "vector"
+K_BF16, GRID_BF16 = 2, "vector"
+
+
+def vector_split(numel, dtype, k):
+    """How the kernel cuts ``numel`` elements of ``dtype`` (float32, or
+    bfloat16 as packed pairs) at ``k`` chains a thread: ``(vectors,
+    tail)``, the whole vectors of ``k`` units (a unit: one float32 element
+    or one bf16 pair) and the units after them, which the kernel runs one a
+    thread.  Raises where the kernel refuses: another ``k``, an odd bf16
+    count, or more elements than its int32 index."""
+    if k not in CHAINS:
+        raise ValueError(f"K6 runs {CHAINS} chains a thread, not {k}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K6 takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and numel % 2:
+        raise ValueError("K6's bf16 chain takes an even number of elements")
+    if not 0 <= numel < 2 ** 31:
+        raise ValueError(f"{numel} elements is out of K6's range")
+    units = numel // 2 if dtype == torch.bfloat16 else numel
+    return units // k, units % k
 
 
 def chain_reference(x, c=PROBE_C, a=PROBE_A, n_ops=N_OPS):
@@ -68,29 +99,39 @@ def _lib():
     lib.vpt_probe_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                     ctypes.c_int, ctypes.c_float,
                                     ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_void_p]
     lib.vpt_probe_chain.restype = ctypes.c_int
     return lib
 
 
-def launch_k6(x, c=PROBE_C, a=PROBE_A, *, fault=0):
-    """Launch the chain on ``x`` (a contiguous float32, or bfloat16 of even
-    size, CUDA tensor) on the current stream.  ``fault=1`` plants the no-op
-    kernel (the input written back)."""
+def launch_k6(x, c=PROBE_C, a=PROBE_A, *, k=None, grid=None, fault=0):
+    """Launch the chain on ``x`` (a contiguous, 16-byte aligned float32, or
+    bfloat16 of even size, CUDA tensor) on the current stream, ``k`` chains
+    a thread over ``grid`` (a key of ``GRIDS``; by default the dtype's
+    shipped ``K_*``/``GRID_*``).  ``fault=1`` plants the no-op kernel (the
+    input written back).  The size rules are :func:`vector_split`'s,
+    checked before the device."""
+    if not x.is_contiguous():
+        raise ValueError("K6 takes a contiguous tensor")
+    bf16 = x.dtype == torch.bfloat16
+    if k is None:
+        k = K_BF16 if bf16 else K_F32
+    if grid is None:
+        grid = GRID_BF16 if bf16 else GRID_F32
+    if grid not in GRIDS:
+        raise ValueError(f"K6's grid is one of {tuple(GRIDS)}, not {grid!r}")
+    vector_split(x.numel(), x.dtype, k)
     if x.device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA devices, not {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError(f"K6 takes contiguous float32 or bfloat16, got {x.dtype}")
-    bf16 = x.dtype == torch.bfloat16
-    if bf16 and x.numel() % 2:
-        raise ValueError("K6's bf16 chain takes an even number of elements")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"{x.numel()} elements is out of K6's range")
+    if x.data_ptr() % 16:  # read and written as 16-byte vectors
+        raise ValueError("K6 takes a 16-byte aligned tensor")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _lib().vpt_probe_chain(
             x.data_ptr(), y.data_ptr(), x.numel(), float(c), float(a),
-            int(bf16), int(fault), torch.cuda.current_stream(x.device).cuda_stream)
+            int(bf16), int(k), GRIDS[grid], int(fault),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K6 launch failed: cudaError_t {err}")
     launch_k6.count += 1

@@ -76,7 +76,9 @@ class MeshData:
     [N*8,8], ``tri_pack`` [T8,16].  Those are the JAX package's arrays; the
     CUDA walk (K3, K3c, K4) reads its own compressed copy of the same tree,
     built beside them at pack time (``nodes8_c``, ``leaf_rows``:
-    ``accel/wide.py::compress_wide``).
+    ``accel/wide.py::compress_wide``).  K3b reads its own copy of the
+    binary tree in the same way (``nodes_c``, ``tri_rows``:
+    ``accel/binary.py::compress_binary``); :meth:`without_wide` keeps it.
 
     A paged mesh (``paged`` set, ``accel/paged.py``) carries its trees in
     :class:`PagedNodes`; its ``nodes_f``/``nodes_i`` are one empty binary
@@ -100,6 +102,8 @@ class MeshData:
     tri_pack: Optional[torch.Tensor] = None      # [T8,16] (v0,e1,e2,slot,uv corners)
     nodes8_c: Optional[torch.Tensor] = None    # [M,20] int32 compressed nodes
     leaf_rows: Optional[torch.Tensor] = None   # [R,12] compact leaf rows
+    nodes_c: Optional[torch.Tensor] = None     # [M,16] int32 K3b's binary nodes
+    tri_rows: Optional[torch.Tensor] = None    # [T,12] K3b's rows (v0, e1, e2)
 
     def __post_init__(self):
         if self.paged is not None and not isinstance(self.paged, PagedNodes):
@@ -119,7 +123,7 @@ class MeshData:
 
     def without_wide(self) -> "MeshData":
         """The same mesh with the 8-wide tree dropped: the card traverses
-        it with K3b (the binary kernel)."""
+        it with K3b (the binary kernel), on the binary copy it keeps."""
         return dataclasses.replace(self, nodes8_f=None, nodes8_i=None,
                                    nodes8_ax=None, tri_pack=None,
                                    nodes8_c=None, leaf_rows=None)
