@@ -218,6 +218,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    files and the metrics log checked; a run stopped after 4 passes and
    resumed to 8 writes the same files byte for byte; the CLI on the card
    against the CPU at 32x32.
+41. K1's shard offsets at 1024^2, 2 spp, 4 bounces (``K1_TILES``): four
+   tile ranges, one starting mid-row, reassemble the full-frame launch bit
+   for bit; two sample halves (``sample_offset`` 0 and 1, 1 spp each)
+   average to it within 1e-6 relative, the last half's depth bit for bit;
+   two planted faults of the check build (the sample offset ignored, the
+   pixel offset applied to the ray but not to the RNG) must break these
+   checks; the full frame against the four tiles' launches in time.
+42. K4's offsets on config 4 (``config4_renderer``, 1024x768), in both
+   modes: tiles with a mid-row range reassemble the full launch bit for
+   bit; the direct mode's sample halves within 1e-6 relative (depth bit for
+   bit), and each half's records are the full launch's records of its
+   sample bit for bit.
+43. K2 on two tiles of the 1024^2 frame (the second from mid-row): the rows
+   summed against the full frame's, leaf by leaf under ``SHARD_GRAD_RTOL``
+   (float32 summation order), with and without the camera.
+44. A world-size-1 NCCL group (``multihost.initialize`` on a local
+   address): ``Renderer(1024, 1024, device_mesh=make_render_mesh(1, 1))``
+   for 4 passes equals the unsharded Renderer bit for bit, and
+   ``sharded_train_step`` equals ``train_step``; their wall ms in turns.
+45. ``TrainParams.hdr`` at full width: on config 4, one ``train_step`` with
+   ``optimize_hdr=True`` (the wavefront's autograd) against
+   ``DeferredParams.hdr`` through K4's records and ``compose``
+   (``deferred_opt_step``), the HDRI gradients under K4's gradient limits.
+46. Two ranks on the one card in a gloo group (``chip_smoke.py
+   --gloo-rank``, a process each, each with a time limit): K1 with its
+   offsets on a 1x2 and a 2x1 mesh; the gathered frames against the
+   single-process K1 frame (2x1 bit for bit, 1x2 within 1e-6 relative).
 
 The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
 one JSON object, every row with its per-pipe and issue bounds, and then
@@ -261,6 +288,11 @@ RGB_ATOL, OUTLIER_FRAC, DEPTH_ATOL = 1e-5, 0.01, 1e-3
 K1_LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-2
 GRAD_LEAVES = ("dcolor", "demission", "dfresnel_coef", "dfresnel_pow")
+# K2's tile sums against the full frame's are the same draws summed in
+# another order, so they agree to float32 summation order; a tile that
+# keyed its draws by the local pixel would change the Monte Carlo estimate
+# by about 1e-3 at 1024^2 and 2 spp.
+SHARD_GRAD_RTOL = 1e-5
 
 # The well-conditioned scene of tests/test_pallas_grad.py::_benign_scene:
 # (radius, pos, emission, color, refl, spec_color); refl 0 = SPEC, 1 = DIFF.
@@ -639,21 +671,25 @@ def k2_small_check(a, label):
 
 def k1_check_launcher(lib, dev):
     """K1's check build ``lib`` as ``fn(cam, spheres, settings, frame, seed,
-    variant) -> (rgb, depth)`` (csrc/radiance.cu vpt_radiance_check)."""
+    variant, pixel_offset=0, sample_offset=0, n_local=None) -> (rgb,
+    depth)`` (csrc/radiance.cu vpt_radiance_check)."""
     import ctypes
 
     fn = ctypes.CDLL(str(lib)).vpt_radiance_check
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32,
-                   ctypes.c_float, ptr, ptr, ptr, i32]
+                   ctypes.c_float, i32, u32, i32, ptr, ptr, ptr, i32]
     fn.restype = ctypes.c_int
 
-    def run(cam_t, sph, s, frame, seed, variant):
-        rgb = torch.empty((s.n_pixels, 3), dtype=torch.float32, device=dev)
-        depth = torch.empty((s.n_pixels,), dtype=torch.float32, device=dev)
+    def run(cam_t, sph, s, frame, seed, variant, pixel_offset=0,
+            sample_offset=0, n_local=None):
+        n = s.n_pixels - pixel_offset if n_local is None else n_local
+        rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        depth = torch.empty((n,), dtype=torch.float32, device=dev)
         err = fn(cam_t.data_ptr(), sph.data_ptr(), sph.shape[0], seed, 0,
                  frame, s.width, s.height, s.samples_per_pass, s.bounces,
-                 s.depth_scale, rgb.data_ptr(), depth.data_ptr(),
+                 s.depth_scale, pixel_offset, sample_offset, n,
+                 rgb.data_ptr(), depth.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream, variant)
         assert err == 0, f"K1 check instance {variant} launch failed: {err}"
         return rgb, depth
@@ -1602,8 +1638,7 @@ def k4_renderers(work_dir, nm_obj, dev, cornell_size=256):
     from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
 
     hdr, tex, _, _ = nm_assets()
-    gold, gloss = str(work_dir / "gold.binary"), str(work_dir / "glossy.binary")
-    write_merl(gold, glossy_merl(0.12, (1.0, 0.72, 0.32)))
+    gloss = str(work_dir / "glossy.binary")
     write_merl(gloss, glossy_merl(0.08, (1.0, 1.0, 1.0)))
 
     def make(w, h, **kw):
@@ -1616,11 +1651,7 @@ def k4_renderers(work_dir, nm_obj, dev, cornell_size=256):
     r.load_texture(tex, 2.2, 0)
     r.load_hdr(hdr)
     for name, mis in (("config 4", False), ("config 4 + MIS", True)):
-        r = out[name] = make(*CONFIG4, brdf_importance_sampling=mis)
-        r.use_example_sphere(True)
-        r.load_hdr(hdr)
-        r.load_brdf(gold)
-        r.use_brdf(True)
+        out[name] = config4_renderer(work_dir, dev, mis)
     r = out["mesh + MERL + MIS"] = make(WIDTH, HEIGHT, brdf_importance_sampling=True)
     r.load_mesh(nm_obj)
     r.load_hdr(hdr)
@@ -1647,6 +1678,28 @@ def k4_renderers(work_dir, nm_obj, dev, cornell_size=256):
                     "pos", "radius", "emission", "color", "refl", "spec_color")})
             r.clear_buffer()
     return out
+
+
+def config4_renderer(work_dir, dev, mis=False):
+    """BASELINE config 4 through the Renderer's entry points: the example
+    sphere, a synthetic gold-paint-like MERL table written as a ``.binary``
+    and loaded through ``load_brdf(path)``, the nm scene's 64x128 HDRI,
+    1024x768, 2 spp, 4 bounces, the camera at z = 40."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
+
+    hdr = nm_assets()[0]
+    gold = work_dir / "gold.binary"
+    if not gold.exists():
+        write_merl(str(gold), glossy_merl(0.12, (1.0, 0.72, 0.32)))
+    r = Renderer(*CONFIG4, settings=RenderSettings(
+        samples_per_pass=2, bounces=4, brdf_importance_sampling=mis),
+        device=dev)
+    r.use_example_sphere(True)
+    r.load_hdr(hdr)
+    r.load_brdf(str(gold))
+    r.use_brdf(True)
+    r.update_camera(origin=(0.0, 0.0, 40.0))
+    return r
 
 
 def k4_args(r):
@@ -3106,6 +3159,355 @@ def config3_cli_phase(dev, card):
         assert frac <= 0.02 and mean <= 1e-4
 
 
+# The shard phases (41-46).  K1's four tile ranges over the 1024^2 frame,
+# (offset, pixels): the second, [1000, 1000 + 4096), starts mid-row; K4's
+# over config 4's 1024x768 frame, and K2's two tiles (the second starts
+# mid-row, at 500,000 = 488 rows + 288).
+K1_TILES = ((0, 1000), (1000, 4096), (5096, 300000), (305096, 743480))
+K4_TILES = ((0, 1000), (1000, 4096), (5096, 400000), (405096, 381336))
+K2_TILES = ((0, 500000), (500000, 548576))
+K1_NO_SAMPLE_OFFSET, K1_LOCAL_RNG = 10, 11   # K1's planted offset faults
+SHARD_PASSES = 4      # world-size-1 Renderer passes held bit for bit
+SHARD_TIMED = 10      # alternating timed passes (and steps) of each
+GLOO_TIMEOUT_S = 300  # a rank of the two-process gloo phase
+
+
+def _tiles(launch, tiles, dim=0):
+    """``launch(offset, n)`` over ``tiles``, the outputs concatenated."""
+    parts = [launch(off, n) for off, n in tiles]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=dim)
+    return [torch.cat(x, dim=dim) for x in zip(*parts)]
+
+
+def _rel_close(got, want, rtol=1e-6):
+    """Whether ``got`` is within ``rtol`` of ``want`` relative, elementwise
+    (equal zeros included), and the largest relative error."""
+    err = (got - want).abs()
+    rel = torch.where(err == 0, torch.zeros_like(err),
+                      err / want.abs().clamp_min(1e-30))
+    return bool((err <= rtol * want.abs()).all()), rel.max().item()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def gloo_rank(init, rank, out_dir):
+    """A rank of phase 46 (``chip_smoke.py --gloo-rank``): two processes on
+    the one card in a gloo group; K1 with its offsets on a 1x2 and a 2x1
+    mesh, the gathered frames saved by rank 0."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    from vrenderer_pathtracer_tpu_torch import RenderSettings
+    from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+    from vrenderer_pathtracer_tpu_torch.parallel import (
+        make_render_mesh, multihost, replicate, shard_pixels,
+        sharded_render_step)
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    multihost.initialize(init, 2, rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    s = RenderSettings(width=WIDTH, height=HEIGHT, use_cornell_box=True,
+                       has_hdr=False)
+    scene, cam = Scene.analytic(s, dev), Camera.default(dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    for n_tiles, n_samples in ((1, 2), (2, 1)):
+        mesh = make_render_mesh(n_tiles, n_samples, "cuda")
+        step = sharded_render_step(mesh, s, scene=scene)
+        accum = shard_pixels(mesh, torch.zeros((s.n_pixels, 3), **f32))
+        k1.launch.count = 0
+        t0 = time.perf_counter()
+        out = step(*replicate(mesh, (scene, cam)), accum, 1,
+                   torch.tensor(0.1, **f32), torch.tensor(3.0, **f32))
+        full = [multihost.gather_image(x, mesh) for x in out]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert k1.launch.count == 1, k1.launch.count
+        if rank == 0:
+            for name, x in zip(("accum", "img", "depth"), full):
+                np.save(pathlib.Path(out_dir) / f"{n_tiles}x{n_samples}_{name}.npy",
+                        x.cpu().numpy())
+            print(f"  gloo rank 0, {n_tiles}x{n_samples}: the step and the "
+                  f"gathers {wall * 1e3:.1f} ms (the first call)")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_phases(dev, card, libs, work_dir):
+    """Phases 41-46: the shard offsets of K1, K4 and K2 on the card, the
+    world-size-1 NCCL group through the public sharded entry points,
+    ``TrainParams.hdr`` at full width, and two gloo ranks on the card.
+    Returns the readings the kernels line carries."""
+    import pathlib
+    import subprocess
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vrenderer_pathtracer_tpu_torch import (
+        DeferredParams, Renderer, RenderSettings, TrainParams,
+        deferred_opt_step, train_step)
+    from vrenderer_pathtracer_tpu_torch.core.camera import Camera
+    from vrenderer_pathtracer_tpu_torch.parallel import (
+        make_render_mesh, multihost, sharded_train_step)
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    out = {}
+    base = RenderSettings(use_cornell_box=True, has_hdr=False, width=WIDTH,
+                          height=HEIGHT)
+    scene, cam = Scene.analytic(base, dev), Camera.default(dev)
+    assert sum(n for _, n in K1_TILES) == base.n_pixels
+
+    # 41. K1 shards: four tile ranges (one from mid-row) against the full
+    # frame bit for bit; two sample halves against it within 1e-6 relative,
+    # the last half's depth bit for bit; the planted offset faults break
+    # the checks.
+    tables = (k1.pack_camera(cam, base, 0.1, 3.0), k1.pack_spheres(scene.spheres))
+    full = k1.launch(*tables, base, 1)
+    tiled = _tiles(lambda o, n: k1.launch(*tables, base, 1, 0, o, 0, n), K1_TILES)
+    assert torch.equal(tiled[0], full[0]) and torch.equal(tiled[1], full[1]), \
+        "K1's tiles differ from its full frame"
+    half = base.replace(samples_per_pass=1)
+    a, b = (k1.launch(*tables, half, 1, 0, 0, so) for so in (0, 1))
+    ok, rel = _rel_close((a[0] + b[0]) / 2, full[0])
+    assert ok and torch.equal(b[1], full[1]), f"K1's sample halves: rel {rel}"
+    check = k1_check_launcher(libs[K1_CHECK], dev)
+    faults = {}
+    fa, fb = (check(*tables, half, 1, 0, K1_NO_SAMPLE_OFFSET, 0, so)
+              for so in (0, 1))
+    fmean = (fa[0] + fb[0]) / 2
+    faults["sample_offset ignored"] = (
+        _rel_close(fmean, full[0])[0] and torch.equal(fb[1], full[1]),
+        (fmean - full[0]).abs().max().item(),
+        (fmean != full[0]).any(-1).float().mean().item())
+    frgb, fdepth = _tiles(lambda o, n: check(*tables, base, 1, 0, K1_LOCAL_RNG,
+                                             o, 0, n), K1_TILES)
+    faults["pixel_offset not in the RNG"] = (
+        torch.equal(frgb, full[0]) and torch.equal(fdepth, full[1]),
+        (frgb - full[0]).abs().max().item(),
+        (frgb != full[0]).any(-1).float().mean().item())
+    whole = check(*tables, base, 1, 0, K1_LOCAL_RNG)
+    print(f"K1 shards, {WIDTH}x{HEIGHT}, {base.samples_per_pass} spp, "
+          f"{base.bounces} bounces: tiles {list(K1_TILES)} reassemble the frame "
+          f"bit for bit; sample halves within {rel:.3g} relative (limit 1e-6), "
+          f"the last half's depth bit for bit; the local-RNG fault's instance "
+          f"on the whole frame "
+          f"{'equals' if torch.equal(whole[0], full[0]) else 'differs from'} K1's")
+    for name, (passes, err, frac) in faults.items():
+        print(f"  planted fault, {name}: the check "
+              f"{'passes' if passes else 'breaks'} (max err {err:.4g}, "
+              f"{frac:.4%} of pixels apart)")
+        assert not passes, f"K1 fault '{name}' passes the shard checks"
+    t_full = cuda_time_ms(lambda: k1.launch(*tables, base, 1), dev, iters=50)
+    t_tiles = cuda_time_ms(lambda: _tiles(
+        lambda o, n: k1.launch(*tables, base, 1, 0, o, 0, n), K1_TILES),
+        dev, iters=50)
+    print(f"K1 full frame {t_full:.4f} ms, as the four tiles {t_tiles:.4f} ms, "
+          f"{card}")
+    out["k1"] = {"tiles_bit_identical": True, "sample_halves_max_rel": rel,
+                 "faults_caught": len(faults), "tiles_ms": t_tiles}
+
+    # 42. K4 shards on config 4, both modes: tiles (one from mid-row)
+    # against the full launch bit for bit; sample halves: direct within 1e-6
+    # relative, records sample for sample bit for bit.
+    r4 = config4_renderer(work_dir, dev)
+    assert r4.settings.radiance_kernel == "cuda_mesh"
+    args = k4_args(r4)
+    s4 = r4.settings
+    assert sum(n for _, n in K4_TILES) == s4.n_pixels
+    for direct in (True, False):
+        full4 = k4.launch_k4(*args, 1, 0, direct=direct)
+        tiled4 = _tiles(lambda o, n: k4.launch_k4(
+            *args, 1, 0, direct=direct, pixel_offset=o, n_local_pixels=n),
+            K4_TILES, dim=1)
+        assert torch.equal(tiled4, full4), f"K4 tiles, direct={direct}"
+    h4 = s4.replace(samples_per_pass=1)
+    args_h = (*args[:3], h4)
+    da, db = (k4.launch_k4(*args_h, 1, 0, direct=True, sample_offset=so)
+              for so in (0, 1))
+    full4 = k4.launch_k4(*args, 1, 0, direct=True)
+    ok4, rel4 = _rel_close((da[1:] + db[1:]) / 2, full4[1:])
+    assert ok4 and torch.equal(db[0], full4[0]), f"K4 direct halves: rel {rel4}"
+    rec = k4.launch_k4(*args, 1, 0)
+    idx, _ = k4.layout(s4)
+    idx1, _ = k4.layout(h4)
+    widths = {"A": 3, "E": 3, "dir": 3, "uv": 2, "midx": 1}
+    for so in (0, 1):
+        got = k4.launch_k4(*args_h, 1, 0, sample_offset=so)
+        for key, k in idx1.items():
+            if key[0] in widths:
+                src = idx[(key[0], so, key[2])]
+                assert torch.equal(got[k:k + widths[key[0]]],
+                                   rec[src:src + widths[key[0]]]), (so, key)
+    print(f"K4 shards, config 4 {s4.width}x{s4.height}: tiles {list(K4_TILES)} "
+          f"reassemble the direct and the records launches bit for bit; direct "
+          f"sample halves within {rel4:.3g} relative, the last half's depth bit "
+          f"for bit; each half's records its samples' bit for bit")
+    out["k4"] = {"tiles_bit_identical": True, "sample_halves_max_rel": rel4}
+
+    # 43. K2 on two tiles (the second from mid-row): the rows summed against
+    # the full frame's, leaf by leaf under SHARD_GRAD_RTOL, with and without
+    # the camera.
+    bright = scene.spheres.emission.clone()
+    bright[0] *= 1.5
+    target, _ = k1.render_pass_cuda(scene.replace_spheres(emission=bright),
+                                    base, cam, 1, 0.1, 3.0)
+    k2_err = {}
+    for with_camera in (False, True):
+        row = k2.launch(*tables, base, target, 1, 0, with_camera)
+        rows = sum(k2.launch(*tables, base, target[o:o + n].contiguous(), 1, 0,
+                             with_camera, pixel_offset=o, n_local_pixels=n)
+                   for o, n in K2_TILES)
+        (want, dw), (got, dg) = (k2.unpack(x, scene.spheres.count, base.n_pixels)
+                                 for x in (row, rows))
+        err = _leaf_errors(got[1:5], want[1:5])
+        err["loss"] = abs(got[0].item() - want[0].item()) / want[0].item()
+        if with_camera:
+            err["dcam"] = ((dg - dw).norm() / dw.norm()).item()
+        k2_err[f"with_camera={with_camera}"] = err
+        print(f"K2 on tiles {list(K2_TILES)}, with_camera={with_camera}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in err.items())
+              + f" (limit {SHARD_GRAD_RTOL})")
+        assert all(v <= SHARD_GRAD_RTOL for v in err.values()), err
+    out["k2"] = {"tile_sums_rel_err": k2_err}
+
+    # 44. A world-size-1 NCCL group: the sharded Renderer and
+    # sharded_train_step against the unsharded ones, bit for bit, and their
+    # wall times in turns.
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    mesh = make_render_mesh(1, 1, "cuda")
+    rs = {"sharded": Renderer(WIDTH, HEIGHT, settings=base, device_mesh=mesh),
+          "unsharded": Renderer(WIDTH, HEIGHT, settings=base)}
+    k1.launch.count = 0
+    imgs = {name: [r.render() for _ in range(SHARD_PASSES)]
+            for name, r in rs.items()}
+    assert k1.launch.count == 2 * SHARD_PASSES
+    for (a_img, a_dep), (b_img, b_dep) in zip(imgs["sharded"], imgs["unsharded"]):
+        assert torch.equal(a_img, b_img) and torch.equal(a_dep, b_dep), \
+            "the 1x1 sharded Renderer differs from the unsharded one"
+
+    def turns(fns):
+        walls = {name: [] for name in fns}
+        for i in range(SHARD_TIMED):
+            for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[name]()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    walls = turns({name: r.render for name, r in rs.items()})
+    params = TrainParams.from_scene(scene)
+    steps = {"sharded": sharded_train_step(mesh, base),
+             "unsharded": train_step(base)}
+    k2.launch.count = 0
+    res = {name: st(params, scene, cam, target, 1) for name, st in steps.items()}
+    assert k2.launch.count == 2
+    for x, y in zip(res["sharded"][0].leaves(), res["unsharded"][0].leaves()):
+        assert torch.equal(x, y), "sharded_train_step differs from train_step"
+    assert torch.equal(res["sharded"][1], res["unsharded"][1])
+    step_walls = turns({name: (lambda st=st: st(params, scene, cam, target, 1))
+                        for name, st in steps.items()})
+    dist.destroy_process_group()
+    for what, w in (("Renderer pass", walls), ("train step", step_walls)):
+        print(f"world size 1 (NCCL), {WIDTH}x{HEIGHT}, {what} wall ms in turns: "
+              + "; ".join(f"{name} {', '.join(f'{x:.3f}' for x in v)} (median "
+                          f"{float(np.median(v)):.3f})" for name, v in w.items())
+              + f", {card}")
+    print(f"world size 1: {SHARD_PASSES} sharded Renderer passes and one "
+          "sharded_train_step bit for bit the unsharded ones")
+    out["world1_pass_ms"] = {k: float(np.median(v)) for k, v in walls.items()}
+    out["world1_step_ms"] = {k: float(np.median(v)) for k, v in step_walls.items()}
+
+    # 45. TrainParams.hdr at full width (config 4): the HDRI gradient of one
+    # train_step (the wavefront's autograd) against DeferredParams.hdr's
+    # through K4's records and compose, on the same loss and frame.
+    target4, _ = k4.render_pass_mesh(r4.scene.replace(hdr=r4.scene.hdr * 1.5),
+                                     s4, r4.camera, 1, r4.fresnel_coef,
+                                     r4.fresnel_pow)
+    p = TrainParams.from_scene(r4.scene, optimize_hdr=True)
+    k4.launch_k4.count = k4.compose.count = 0
+    t0 = time.perf_counter()
+    p1, m1 = train_step(s4, lr=1.0, with_metrics=True)(
+        p, r4.scene, r4.camera, target4, 1)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    assert k4.launch_k4.count == 0  # the wavefront's autograd, not K4
+    g_train = p.hdr - p1.hdr
+    d = DeferredParams(hdr=r4.scene.hdr.clone().requires_grad_())
+    before = d.hdr.detach().clone()
+    _, m2 = deferred_opt_step(s4, torch.optim.SGD([d.hdr], lr=1.0),
+                              scene=r4.scene)(d, r4.scene, r4.camera, target4,
+                                              1, r4.fresnel_coef, r4.fresnel_pow)
+    assert k4.launch_k4.count == k4.compose.count == 1  # records + compose
+    g_def = before - d.hdr.detach()
+    rel_h = ((g_train - g_def).norm() / g_def.norm()).item()
+    frac_h = ((g_train - g_def).abs() > 1e-3 * g_def.abs().max()).float().mean().item()
+    print(f"TrainParams.hdr, config 4 {s4.width}x{s4.height}: train_step loss "
+          f"{m1['loss'].item():.6g} (the wavefront, {train_wall * 1e3:.1f} ms "
+          f"wall) vs deferred_opt_step {m2['loss'].item():.6g} (K4 records + "
+          f"compose); d loss / d hdr rel err {rel_h:.4g}, entries off by >1e-3 "
+          f"of the scale {frac_h:.4%} (limits {K4_GRAD_RTOL:g}, "
+          f"{K4_GRAD_FRAC:g})")
+    assert g_def.abs().max().item() > 0
+    assert rel_h <= K4_GRAD_RTOL and frac_h <= K4_GRAD_FRAC
+    out["train_hdr"] = {"rel_err": rel_h, "frac": frac_h}
+
+    # 46. Two ranks on the one card in a gloo group (NCCL takes one rank a
+    # card): K1 with its offsets on 1x2 and 2x1 meshes, the gathered frames
+    # against the single-process K1 frame.
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        init = f"file://{tmp / 'store'}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--gloo-rank",
+                                   init, str(rank), str(tmp)])
+                 for rank in range(2)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(GLOO_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        assert all(proc.returncode == 0 for proc in procs), \
+            [proc.returncode for proc in procs]
+        for shape in ("2x1", "1x2"):
+            acc, dep = (torch.from_numpy(np.load(tmp / f"{shape}_{f}.npy")).to(dev)
+                        for f in ("accum", "depth"))
+            if shape == "2x1":
+                assert torch.equal(acc, full[0]), "gloo 2x1 differs from K1"
+                how = "bit for bit"
+            else:
+                ok_g, g_rel = _rel_close(acc, full[0])
+                assert ok_g, f"gloo 1x2: rel {g_rel}"
+                how = f"within {g_rel:.3g} relative of"
+            assert torch.equal(dep, full[1]), f"gloo {shape} depth"
+            print(f"gloo, two ranks on the card, {shape}: the gathered frame "
+                  f"{how} the single-process K1 frame, depth bit for bit")
+        print(f"gloo phase: {time.perf_counter() - t0:.1f} s with the ranks' "
+              "start-up")
+    out["gloo_two_ranks"] = True
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3404,6 +3806,9 @@ def main() -> int:
     c5_rows = config5_phases(dev, card, work_dir)
     k3c_row = capture_phases(dev, card, str(work_dir / "nm_sphere.obj"))
     config3_cli_phase(dev, card)
+    shards = shard_phases(dev, card, libs, work_dir)
+    k4_row["shards"] = shards["k4"]
+    k4_row["train_params_hdr_grad"] = shards["train_hdr"]
 
     print(json.dumps({"kernels": [{
         "name": "K1 radiance",
@@ -3418,6 +3823,9 @@ def main() -> int:
         "cuts_bit_identical_nofma": cuts["nofma"],
         "cuts_elements_apart_fma": cuts["fma_apart"],
         "fault_no_fresnel_outliers": cuts["fault"],
+        "shards": shards["k1"],
+        "world1_pass_wall_ms": shards["world1_pass_ms"],
+        "gloo_two_ranks": shards["gloo_two_ranks"],
         "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
@@ -3437,6 +3845,8 @@ def main() -> int:
         "with_camera_ms": k2_times["with_camera"],
         "wrapper_ms": k2_wrapper_ms,
         "train_step_wall_ms": step_wall * 1e3,
+        "shards": shards["k2"],
+        "world1_step_wall_ms": shards["world1_step_ms"],
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
@@ -3450,4 +3860,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(*sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

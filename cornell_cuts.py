@@ -81,7 +81,7 @@ def main() -> int:
     def k1_fn(bits):
         fn = ctypes.CDLL(str(libs[mix_target("radiance", bits)])).vpt_radiance
         fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32,
-                       ctypes.c_float, ptr, ptr, ptr]
+                       ctypes.c_float, i32, u32, i32, ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
         depth = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -89,7 +89,7 @@ def main() -> int:
         def run():
             err = fn(cam_t.data_ptr(), sph.data_ptr(), ns, 0, 0, 1, s.width,
                      s.height, s.samples_per_pass, s.bounces, s.depth_scale,
-                     rgb.data_ptr(), depth.data_ptr(), stream)
+                     0, 0, n, rgb.data_ptr(), depth.data_ptr(), stream)
             assert err == 0, f"K1 launch failed: {err}"
             return rgb
 
@@ -101,7 +101,7 @@ def main() -> int:
         lib.vpt_grad_workspace_floats.restype = ctypes.c_longlong
         fn = lib.vpt_grad
         fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32, i32,
-                       ptr, ptr, ptr, i32, ptr]
+                       i32, i32, ptr, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
         k = k2.n_partials(ns, False)
         work = torch.empty((lib.vpt_grad_workspace_floats(n, k),),
@@ -110,7 +110,7 @@ def main() -> int:
 
         def run():
             err = fn(cam_t.data_ptr(), sph.data_ptr(), ns, 0, 0, 1, s.width,
-                     s.height, s.samples_per_pass, s.bounces, 0,
+                     s.height, s.samples_per_pass, s.bounces, 0, 0, n,
                      target.data_ptr(), work.data_ptr(), row.data_ptr(), 0,
                      stream)
             assert err == 0, f"K2 launch failed: {err}"

@@ -99,14 +99,17 @@ def test_resume_from_checkpoint_dir_is_bitwise(assets, tmp_path):
                       "done"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["render", "--cpu", "--tiles", "2"], "item 13"),
-    (["render", "--cpu", "--sample-shards", "2"], "item 13"),
-    (["view", "--cpu", "--headless"], "item 14"),
-    (["bench"], "item 7"),
+@pytest.mark.parametrize("argv,error,match", [
+    # One process: shard counts other than 1 x 1 do not fit its world.
+    (["render", "--cpu", "--tiles", "2"], ValueError, "world size is 1"),
+    (["render", "--cpu", "--sample-shards", "2"], ValueError, "world size is 1"),
+    (["view", "--cpu", "--headless"], NotImplementedError,
+     "ROADMAP Queue 1 item 14"),
+    (["bench"], NotImplementedError, "ROADMAP Queue 1 item 7"),
 ])
-def test_unported_flags_and_commands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+def test_unported_flags_and_commands_raise(argv, error, match, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(error, match=match):
         cli.main(argv + (["--width", "4", "--height", "4"]
                          if argv[0] != "bench" else []))
 

@@ -1074,3 +1074,72 @@ def test_failed_paged_build_raises(cuda, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match=f"nvcc failed for {name}"):
             build.build(name)
     assert not list(tmp_path.iterdir())
+
+
+# --- shard offsets (parallel/sharding.py) ------------------------------------
+
+def test_k1_tiles_and_sample_halves_reassemble_the_frame(cuda):
+    """K1 over tile ranges (one from mid-row) is its full launch bit for
+    bit; two one-sample halves average to it, the last half's depth its."""
+    s = vpt.RenderSettings(width=64, height=32, samples_per_pass=2, bounces=4,
+                           **CORNELL)
+    scene, cam = Scene.analytic(s, cuda), Camera.default(cuda)
+    tables = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres))
+    full = k1.launch(*tables, s, 1)
+    parts = [k1.launch(*tables, s, 1, 0, o, 0, n)
+             for o, n in ((0, 100), (100, 1000), (1100, 948))]
+    for got, want in zip(zip(*parts), full):
+        assert torch.equal(torch.cat(got), want)
+    half = s.replace(samples_per_pass=1)
+    a, b = (k1.launch(*tables, half, 1, 0, 0, so) for so in (0, 1))
+    assert torch.equal((a[0] + b[0]) / 2, full[0]) and torch.equal(b[1], full[1])
+    with pytest.raises(ValueError, match="not in the frame"):
+        k1.launch(*tables, s, 1, 0, 2000, 0, 100)
+
+
+def test_k2_tile_rows_add_up_to_the_frame(cuda):
+    s = vpt.RenderSettings(**SMALL)
+    scene, cam = Scene.analytic(s, cuda), Camera.default(cuda)
+    tables = (k1.pack_camera(cam, s, 0.1, 3.0), k1.pack_spheres(scene.spheres))
+    target = torch.rand((s.n_pixels, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    full = k2.launch(*tables, s, target, 1)
+    rows = sum(k2.launch(*tables, s, target[o:o + n].contiguous(), 1,
+                         pixel_offset=o, n_local_pixels=n)
+               for o, n in ((0, 1000), (1000, 1048)))
+    torch.testing.assert_close(rows, full, rtol=1e-5, atol=1e-7)
+
+
+def test_k4_tiles_reassemble_both_modes(cuda, meshes):
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = vpt.Renderer(48, 32, settings=vpt.RenderSettings(
+        samples_per_pass=2, bounces=3), device=cuda)
+    r.init_mesh(meshes[0])
+    r.load_hdr(np.random.default_rng(0).uniform(0, 1, (16, 32, 3)).astype(np.float32))
+    r.update_camera(origin=(0.0, 0.0, 40.0))
+    assert r.settings.radiance_kernel == "cuda_mesh"
+    args = (k1.pack_camera(r.camera, r.settings, r.fresnel_coef, r.fresnel_pow),
+            k1.pack_spheres(r.scene.spheres), r.scene, r.settings, 1, 0)
+    for direct in (True, False):
+        full = k4.launch_k4(*args, direct=direct)
+        parts = [k4.launch_k4(*args, direct=direct, pixel_offset=o,
+                              n_local_pixels=n)
+                 for o, n in ((0, 70), (70, 900), (970, 566))]
+        assert torch.equal(torch.cat(parts, dim=1), full)
+
+
+def test_world_size_one_sharded_renderer_is_the_unsharded_one(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from vrenderer_pathtracer_tpu_torch.parallel import make_render_mesh, multihost
+
+    s = vpt.RenderSettings(**SMALL)
+    multihost.initialize(f"file://{tmp_path / 'rendezvous'}", 1, 0)
+    try:
+        mesh = make_render_mesh(1, 1, "cuda")
+        a = vpt.Renderer(64, 32, settings=s, device_mesh=mesh).render_frames(2)
+        b = vpt.Renderer(64, 32, settings=s).render_frames(2)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    finally:
+        dist.destroy_process_group()

@@ -295,9 +295,13 @@ def test_train_params_from_numpy():
     bare = interop.train_params_from_numpy(_numpy(p._replace(camera=None)),
                                            device="cpu")
     assert bare.camera is None and len(bare.leaves()) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.train_params_from_numpy(
-            dict(_numpy(p), hdr=np.zeros((2, 4, 3), np.float32)), device="cpu")
+    # A trainable HDRI converts and round-trips through leaves/with_leaves.
+    hdr = np.random.default_rng(3).uniform(0, 1, (2, 4, 3)).astype(np.float32)
+    t = interop.train_params_from_numpy(dict(_numpy(p), hdr=hdr), device="cpu")
+    np.testing.assert_array_equal(t.hdr.numpy(), hdr)
+    assert len(t.leaves()) == 9 and t.leaves()[-1] is t.hdr
+    back = t.with_leaves(t.leaves())
+    assert back.hdr is t.hdr and back.camera is not None
 
 
 def test_steps_default_to_the_card():

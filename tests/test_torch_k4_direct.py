@@ -162,6 +162,9 @@ K4_FIELDS = ["cam", "spheres", "nodes", "rows", "tri_e1",
              "depth_scale", "fault_arg"]
 DIRECT_FIELDS = ["hdr", "tex", "brdf", "hdr_w", "hdr_h", "tex_w", "tex_h",
                  "bilinear", "direct"]
+# A shard's place in the frame (parallel/sharding.py), after the direct
+# fields.
+SHARD_FIELDS = ["pixel_offset", "n_local", "sample_offset"]
 
 
 def _cuda_params():
@@ -180,11 +183,13 @@ def _cuda_params():
 
 def test_params_grow_by_exactly_the_direct_fields_in_declared_order():
     names = [f[0] for f in k4._Params._fields_]
-    assert names == K4_FIELDS + DIRECT_FIELDS
+    assert names == K4_FIELDS + DIRECT_FIELDS + SHARD_FIELDS
     assert _cuda_params() == names
     types = dict(k4._Params._fields_)
     assert all(types[f] is types["cam"] for f in ("hdr", "tex", "brdf"))
-    assert all(types[f] is types["width"] for f in DIRECT_FIELDS[3:])
+    assert all(types[f] is types["width"]
+               for f in DIRECT_FIELDS[3:] + SHARD_FIELDS[:2])
+    assert types["sample_offset"] is types["frame"]
 
 
 def test_stats_and_faults_of_the_direct_mode():

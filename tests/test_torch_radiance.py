@@ -160,10 +160,13 @@ def test_unsupported_settings_raise():
     from vrenderer_pathtracer_tpu_torch.interop import train_params_from_numpy
 
     s = RenderSettings(**PALLAS)
-    # Every setting is in scope now; a trainable HDRI in TrainParams is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_params_from_numpy({"hdr": np.zeros((4, 8, 3), np.float32)},
-                                device="cpu")
+    # Every setting is in scope now, a trainable HDRI in TrainParams too.
+    z = np.zeros((9, 3), np.float32)
+    p = train_params_from_numpy(
+        {"color": z, "emission": z, "fresnel_coef": np.float32(0.1),
+         "fresnel_pow": np.float32(3.0),
+         "hdr": np.zeros((4, 8, 3), np.float32)}, device="cpu")
+    assert tuple(p.hdr.shape) == (4, 8, 3) and len(p.leaves()) == 5
     # Compact bounce waves, ray sorting and attribute capture are in scope
     # (captured_attrs turns compact waves off, as in the JAX integrator).
     scene = Scene.analytic(s, "cpu")

@@ -102,14 +102,19 @@ def test_sync_render_records_stats():
     assert "Mrays/s" in r.hud_line() and "2 spp" in r.hud_line()
 
 
-@pytest.mark.parametrize("call", [
-    lambda r: cli.main(["view", "--cpu", "--width", "4", "--height", "4"]),
-    lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),
-    lambda r: cli.main(["render", "--cpu", "--width", "4", "--height", "4",
-                        "--tiles", "2"]),
+@pytest.mark.parametrize("call,error,match", [
+    (lambda r: cli.main(["view", "--cpu", "--width", "4", "--height", "4"]),
+     NotImplementedError, "ROADMAP"),
+    # Sharding is ported: a mesh that is not a DeviceMesh, and two tiles in
+    # a one-process world, are refused.
+    (lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),
+     TypeError, "DeviceMesh"),
+    (lambda r: cli.main(["render", "--cpu", "--width", "4", "--height", "4",
+                         "--tiles", "2"]), ValueError, "world size"),
 ])
-def test_unported_methods_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_methods_raise(call, error, match, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(error, match=match):
         call(_port(4, 4))
 
 
@@ -184,7 +189,9 @@ def test_load_texture_rejects_unknown_type():
     dict(settings=vpt.RenderSettings(**CORNELL), device_mesh=object()),
 ])
 def test_unported_constructor_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A device mesh is a torch.distributed DeviceMesh (make_render_mesh);
+    a list of devices or another object is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         vpt.Renderer(4, 4, device="cpu", **kw)
 
 

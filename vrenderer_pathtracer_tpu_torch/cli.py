@@ -11,19 +11,26 @@ Example:
     python -m vrenderer_pathtracer_tpu_torch render --cornell --width 512 \\
         --height 512 --spp 64 --out cornell.png --depth-out depth.png
 
-Not ported yet, each raising ``NotImplementedError``: ``--tiles`` and
-``--sample-shards`` (sharded rendering), ``view`` (the terminal viewer)
-and ``bench``.
+``--tiles`` and ``--sample-shards`` shard the render over the processes of
+a ``torchrun`` launch (its ``WORLD_SIZE`` and ``RANK``; NCCL on the cards,
+gloo with ``--cpu``), e.g. two tiles on the CPU:
+
+    torchrun --nproc-per-node 2 -m vrenderer_pathtracer_tpu_torch render \\
+        --cpu --tiles 2 --cornell --out cornell.png
+
+Every rank renders its tile and holds the gathered frame; rank 0 writes
+the files, the metrics log and the checkpoints.  Not ported yet, each
+raising ``NotImplementedError``: ``view`` (the terminal viewer) and
+``bench``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
-SHARDING_ITEM = ("ROADMAP Queue 1 item 13 (sharded rendering: --tiles, "
-                 "--sample-shards)")
 VIEW_ITEM = "ROADMAP Queue 1 item 14 (view.py, the terminal viewer)"
 BENCH_ITEM = "ROADMAP Queue 1 item 7 (the port's bench)"
 
@@ -79,21 +86,46 @@ def _add_render_args(p: argparse.ArgumentParser):
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (default: the CUDA card)")
     p.add_argument("--tiles", type=int, default=0,
-                   help="tile shards (not ported: " + SHARDING_ITEM + ")")
+                   help="tile shards (default: world size / sample shards)")
     p.add_argument("--sample-shards", type=int, default=1,
-                   help="sample shards (not ported: " + SHARDING_ITEM + ")")
+                   help="sample shards (tiles x sample shards = world size)")
     p.add_argument("--quiet", action="store_true")
+
+
+def _device_mesh(args):
+    """The ``(tiles, samples)`` mesh ``--tiles`` and ``--sample-shards`` ask
+    for over the ``torchrun`` world (``WORLD_SIZE``, ``RANK``), or None for
+    one process rendering the whole frame.  Raises ``ValueError`` when the
+    shard counts do not multiply to the world size."""
+    from vrenderer_pathtracer_tpu_torch.parallel import multihost
+    from vrenderer_pathtracer_tpu_torch.parallel.sharding import make_render_mesh
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and args.tiles in (0, 1) and args.sample_shards == 1:
+        return None
+    n_tiles = args.tiles or max(world // args.sample_shards, 1)
+    if n_tiles * args.sample_shards != world:
+        raise ValueError(
+            f"--tiles {n_tiles} x --sample-shards {args.sample_shards} needs "
+            f"{n_tiles * args.sample_shards} processes, but the world size is "
+            f"{world} (run under torchrun --nproc-per-node "
+            f"{n_tiles * args.sample_shards})")
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        multihost.initialize(None, world, int(os.environ.get("RANK", "0")),
+                             backend="gloo" if args.cpu else None)
+    return make_render_mesh(n_tiles, args.sample_shards,
+                            "cpu" if args.cpu else "cuda")
 
 
 def _build_renderer(args):
     """A Renderer set up from the scene, camera and material flags, on the
-    card unless ``--cpu``."""
+    card unless ``--cpu``, sharded as ``--tiles``/``--sample-shards`` ask."""
     from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings
     from vrenderer_pathtracer_tpu_torch.io import load_image
 
-    if args.tiles or args.sample_shards > 1:
-        raise NotImplementedError(
-            f"--tiles/--sample-shards are not ported yet: {SHARDING_ITEM}")
+    device_mesh = _device_mesh(args)
     settings = RenderSettings(
         samples_per_pass=args.samples_per_pass,
         bounces=args.bounces,
@@ -102,7 +134,7 @@ def _build_renderer(args):
         use_fxaa=args.fxaa,
     )
     r = Renderer(args.width, args.height, settings=settings, seed=args.seed,
-                 device="cpu" if args.cpu else "cuda")
+                 device="cpu" if args.cpu else "cuda", device_mesh=device_mesh)
     if args.hdr:
         r.load_hdr(args.hdr)
     if args.mesh:
@@ -141,11 +173,14 @@ def cmd_render(args) -> int:
     from vrenderer_pathtracer_tpu_torch.io import save_depth_png, save_png, write_exr
     from vrenderer_pathtracer_tpu_torch.render.progressive import ProgressiveScheduler
 
+    from vrenderer_pathtracer_tpu_torch.parallel.multihost import is_main_process
+
     r = _build_renderer(args)
+    writes = is_main_process()
     t0 = time.perf_counter()
 
     def on_pass(i, spp):
-        if not args.quiet:
+        if not args.quiet and writes:
             dt = time.perf_counter() - t0
             print(f"pass {i}: {spp} spp, {dt:.2f}s, "
                   f"{dt / max(i, 1) * 1e3:.1f} ms/pass", file=sys.stderr)
@@ -155,18 +190,22 @@ def cmd_render(args) -> int:
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         on_pass=on_pass,
-        metrics_path=args.metrics,
+        metrics_path=args.metrics if writes else None,
     )
-    if args.checkpoint_dir and sched.resume_if_possible() and not args.quiet:
+    if (args.checkpoint_dir and sched.resume_if_possible() and not args.quiet
+            and writes):
         print(f"resumed at {r.samples_per_pixel} spp", file=sys.stderr)
     img, depth = sched.run()
+    accum = r.accumulation() if args.out_exr else None  # every rank gathers
+    if not writes:
+        return 0
 
     if args.out:
         save_png(args.out, img)
         if not args.quiet:
             print(f"wrote {args.out}", file=sys.stderr)
     if args.out_exr:
-        linear = r._accum.cpu().numpy().reshape(
+        linear = accum.cpu().numpy().reshape(
             args.height, args.width, 3) / max(r.frame - 1, 1)
         write_exr(args.out_exr, linear[::-1])
         if not args.quiet:

@@ -9,7 +9,13 @@
 // dir, cx, cy, and reduces them to one row of K = 3 + 6*Ns (+12) sums:
 // [0] sum of squared errors, [1 + 6i + c] dcolor_i[c], [4 + 6i + c]
 // demission_i[c], [1 + 6Ns] dfresnel_coef, [2 + 6Ns] dfresnel_pow,
-// [3 + 6Ns ...] d origin, d view, d cx, d cy.  The wrapper
+// [3 + 6Ns ...] d origin, d view, d cx, d cy.  A launch may take a tile
+// of the frame, the raster range [pixel_offset, pixel_offset + n_local)
+// (parallel/sharding.py): thread i takes pixel pixel_offset + i, whose
+// global id drives its primary ray and keys its draws, target is the
+// tile's [n_local, 3], and the loss and every gradient keep the frame's
+// normaliser 1 / (N * 3), N = width * height, so the tiles' rows add up
+// to the frame's.  The wrapper
 // (render/cuda_grad.py) reads that row.  The plain PyTorch version is torch
 // autograd of generate_rays + render/integrator.py::render_pass
 // (render/cuda_grad.py::cornell_loss_grads_reference).
@@ -267,8 +273,9 @@ template <bool kCam, bool kFault>
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(const float* __restrict__ cam, const float* __restrict__ spheres,
             int n_spheres, uint32_t seed_lo, uint32_t seed_hi, uint32_t frame,
-            int width, int height, int spp, int bounces,
-            const float* __restrict__ target, float* __restrict__ rows,
+            int width, int height, int spp, int bounces, int pixel_offset,
+            int n_local, const float* __restrict__ target,
+            float* __restrict__ rows,
             unsigned int* __restrict__ counts, float* __restrict__ out) {
   extern __shared__ float smem[];
   __shared__ bool last;
@@ -281,11 +288,12 @@ grad_kernel(const float* __restrict__ cam, const float* __restrict__ spheres,
   __syncthreads();
 
   const int n = width * height;
-  const int pixel = blockIdx.x * kThreads + tid;
+  const int i = blockIdx.x * kThreads + tid;
+  const int pixel = pixel_offset + i;
   float* mine = acc + tid;  // this thread's column: mine[k * kThreads]
   // Rows K..K+5 of the column: dfc and dfp of each channel at g = 1.
   float* fres_rows = mine + n_k * kThreads;
-  if (pixel < n) {
+  if (i < n_local) {
     const float fc = cam[12], fp = cam[13];
     float u, v, d0[3];
     const float len0 = primary_ray(cam, pixel, width, height, u, v, d0[0],
@@ -395,7 +403,7 @@ grad_kernel(const float* __restrict__ cam, const float* __restrict__ spheres,
     const float gscale = 2.f / (3.f * static_cast<float>(n) * fspp);
     float g[3], sse = 0.f;
     for (int c = 0; c < 3; ++c) {
-      const float diff = rgb[c] / fspp - target[3 * pixel + c];
+      const float diff = rgb[c] / fspp - target[3 * i + c];
       sse += diff * diff;
       g[c] = diff * gscale;
     }
@@ -489,7 +497,8 @@ int groups_of(int blocks) { return (blocks + kGroup - 1) / kGroup; }
 
 }  // namespace
 
-// Floats of the workspace a launch over `n_pixels` pixels needs for a row
+// Floats of the workspace a launch over `n_pixels` pixels (its n_local)
+// needs for a row
 // of K sums: the block rows, the group rows and the group counters (one
 // 32-bit word each, and one for the groups).
 extern "C" long long vpt_grad_workspace_floats(int n_pixels, int n_k) {
@@ -498,24 +507,27 @@ extern "C" long long vpt_grad_workspace_floats(int n_pixels, int n_k) {
   return (blocks + groups) * n_k + groups + 1;
 }
 
-// Launches K2 on `stream` and returns a cudaError_t (0 on success;
-// cudaErrorInvalidValue when spp * bounces exceeds kMaxRecords).  All
-// pointers are device pointers: cam [14], spheres [n_spheres, 14], target
-// [width*height, 3] and out [K] contiguous float32, workspace
-// vpt_grad_workspace_floats(width*height, K) floats.  `fault` non-zero
+// Launches K2 on `stream` over the pixels [pixel_offset, pixel_offset +
+// n_local) and returns a cudaError_t (0 on success; cudaErrorInvalidValue
+// when spp * bounces exceeds kMaxRecords or the range leaves the frame).
+// All pointers are device pointers: cam [14], spheres [n_spheres, 14],
+// target [n_local, 3] and out [K] contiguous float32, workspace
+// vpt_grad_workspace_floats(n_local, K) floats.  `fault` non-zero
 // launches the instance with the planted fault (material-only).
 extern "C" int vpt_grad(const void* cam, const void* spheres, int n_spheres,
                         unsigned int seed_lo, unsigned int seed_hi,
                         unsigned int frame, int width, int height, int spp,
-                        int bounces, int with_camera, const void* target,
-                        void* workspace, void* out, int fault, void* stream) {
+                        int bounces, int with_camera, int pixel_offset,
+                        int n_local, const void* target, void* workspace,
+                        void* out, int fault, void* stream) {
   if (bounces < 0 || spp < 1 || spp > kMaxRecords ||
       spp * bounces > kMaxRecords || n_spheres < 1 || n_spheres > 64 ||
-      (fault && with_camera)) {
+      (fault && with_camera) || pixel_offset < 0 || n_local <= 0 ||
+      static_cast<long long>(pixel_offset) + n_local >
+          static_cast<long long>(width) * height) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n = width * height;
-  const int blocks = blocks_of(n);
+  const int blocks = blocks_of(n_local);
   const int n_k = 3 + 6 * n_spheres + (with_camera ? 12 : 0);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kCols) * n_spheres +
@@ -540,7 +552,7 @@ extern "C" int vpt_grad(const void* cam, const void* spheres, int n_spheres,
   kernel<<<blocks, kThreads, smem, s>>>(
       static_cast<const float*>(cam), static_cast<const float*>(spheres),
       n_spheres, seed_lo, seed_hi, frame, width, height, spp, bounces,
-      static_cast<const float*>(target), rows, counts,
+      pixel_offset, n_local, static_cast<const float*>(target), rows, counts,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,10 @@
 //     killed later; where nothing is deferred, the rgb mean.
 //     render/cuda_mesh.py::compose fetches the tables in torch and composes
 //     the image, differentiably.
+// A launch may take a shard of the frame (parallel/sharding.py): the raster
+// range [pixel_offset, pixel_offset + n_local), whatever its alignment, with
+// the samples from sample_offset.  The pixels' global ids drive the primary
+// rays and key the draws, and the outputs are the range's, [.., n_local].
 // The plain PyTorch version of both is render/cuda_mesh.py::records_reference
 // followed by compose.  The TPU kernel defers the fetches only because
 // Mosaic has no per-lane gathers (pallas_mesh.py:12-31); a forward pass on
@@ -47,7 +51,9 @@
 //   * a warp takes an 8x4 pixel tile, a block a column of four (pixel_of),
 //     so a warp's rays are coherent in two dimensions and walk the same
 //     nodes; the pixel index, the output layout and the threefry keys are
-//     the raster ones;
+//     the raster ones.  A shard's blocks tile the image rows its range
+//     touches, and threads outside the range (the first and last rows'
+//     other pixels) exit at once;
 //   * the mesh search is K3's own device function on the tree's compressed
 //     copy (accel/wide.py: 80-byte nodes, 48-byte unpadded leaf rows;
 //     distance-ordered, popped nodes culled, one local stack: traverse.cuh),
@@ -133,7 +139,7 @@ struct Params {
   const float* tri_uv;    // [T, 3, 2]
   const float* tri_t;     // [T, 3, 3]
   const float* mis;       // [kMisFloats], null without lobe MIS
-  float* records;         // [n_slots, width * height]; direct mode [4, N]
+  float* records;         // [n_slots, n_local]; direct mode [4, n_local]
   unsigned long long* stats;  // null, or kStats counters the kernel adds to
   int n_spheres, width, height, spp, bounces, flags;
   int per_sb, off_a, off_e, off_dir, off_uv, off_midx, rgb_slot, fault;
@@ -147,6 +153,10 @@ struct Params {
   const float* tex;
   const float* brdf;
   int hdr_w, hdr_h, tex_w, tex_h, bilinear, direct;
+  // The shard: the raster range [pixel_offset, pixel_offset + n_local) and
+  // the first sample id (0, width * height and 0 for the whole frame).
+  int pixel_offset, n_local;
+  uint32_t sample_offset;
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -347,16 +357,19 @@ __device__ __forceinline__ void merl_factor(const float* __restrict__ brdf, int 
 }
 
 // The pixel of this thread: a warp covers an 8x4 tile, a block a column of
-// kWarps tiles (8x16 pixels), the blocks in raster order; -1 past the
-// image's edge.  The pixel index is the raster one, so the output layout and
-// the threefry keys are those of a raster-order thread mapping.
-__device__ __forceinline__ int pixel_of(int width, int height) {
+// kWarps tiles (8x16 pixels), the blocks in raster order over the image rows
+// that the range [offset, offset + n_local) touches; -1 outside the range.
+// The pixel index is the raster one, so the output layout and the threefry
+// keys are those of a raster-order thread mapping.
+__device__ __forceinline__ int pixel_of(int width, int offset, int n_local) {
   const int cols = (width + kTileW - 1) / kTileW;
   const int bx = blockIdx.x % cols, by = blockIdx.x / cols;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x = bx * kTileW + (lane % kTileW);
-  const int y = by * kBlockH + warp * kTileH + lane / kTileW;
-  return x < width && y < height ? y * width + x : -1;
+  const int y = offset / width + by * kBlockH + warp * kTileH + lane / kTileW;
+  const long long pixel = static_cast<long long>(y) * width + x;
+  return x < width && pixel >= offset && pixel < offset + n_local
+             ? static_cast<int>(pixel) : -1;
 }
 
 // K4.  kDirect: fetch the tables here and write depth and rgb ([4, N]),
@@ -378,8 +391,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
   const float* sph = stage_spheres(smem + (mis ? kMisFloats : 0), p.spheres,
                                    p.n_spheres);
 
-  const int n = p.width * p.height;
-  const int pixel = pixel_of(p.width, p.height);
+  const int pixel = pixel_of(p.width, p.pixel_offset, p.n_local);
   if (pixel < 0) return;
 
   const bool cornell = p.flags & kFlagCornell;
@@ -393,8 +405,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
   const bool bilinear = p.bilinear != 0;
   const float inactive_u = __int_as_float(0x7f800000);  // +inf: no texture
   const float fc = p.cam[12], fp = p.cam[13];
-  float* rec = p.records + pixel;
-  const size_t stride = static_cast<size_t>(n);
+  float* rec = p.records + (pixel - p.pixel_offset);
+  const size_t stride = static_cast<size_t>(p.n_local);
   auto put = [&](int slot, float v) { rec[slot * stride] = v; };
 
   float u0, v0, d0[3];
@@ -406,6 +418,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
   unsigned traced = 0, hits = 0, brdf_hits = 0, mis_draws = 0, env_fetches = 0,
            tex_fetches = 0;
   for (int s = 0; s < p.spp; ++s) {
+    const uint32_t sid = p.sample_offset + s;  // the sample's global id
     float o[3] = {p.cam[0], p.cam[1], p.cam[2]};
     float d[3] = {d0[0], d0[1], d0[2]};
     float m[3] = {1.f, 1.f, 1.f};
@@ -577,8 +590,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
       }
 
       float u_reflect, unused, u_phi, u_r;
-      draw(p.seed_lo, p.seed_hi, pixel, p.frame, s, b, 0, u_reflect, unused);
-      draw(p.seed_lo, p.seed_hi, pixel, p.frame, s, b, 1, u_phi, u_r);
+      draw(p.seed_lo, p.seed_hi, pixel, p.frame, sid, b, 0, u_reflect, unused);
+      draw(p.seed_lo, p.seed_hi, pixel, p.frame, sid, b, 1, u_phi, u_r);
       shade(sc, col, spec, is_brdf ? kBrdf : refl, d[0], d[1], d[2], u_reflect,
             u_phi, u_r, fc, fp);
 
@@ -591,7 +604,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
           float bdx = sc.cdx, bdy = sc.cdy, bdz = sc.cdz, fac = 1.f;
           if (mis) {
             float u_b1, u_b2;
-            draw(p.seed_lo, p.seed_hi, pixel, p.frame, s, b, 2, u_b1, u_b2);
+            draw(p.seed_lo, p.seed_hi, pixel, p.frame, sid, b, 2, u_b1, u_b2);
             fac = lobe_mis(mis_t, d[0], d[1], d[2], sc.nx, sc.ny, sc.nz, sc.cdx,
                            sc.cdy, sc.cdz, u_reflect, u_b1, u_b2, u_phi, bdx,
                            bdy, bdz);
@@ -691,10 +704,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) mesh_kernel(const Params
 // the scene has a mesh (kFlagMesh) pick the instance.
 extern "C" int vpt_mesh(const void* params, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
-  const int n = p.width * p.height;
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(p.width) * p.height;
+  if (n <= 0 || p.pixel_offset < 0 || p.n_local <= 0 ||
+      p.pixel_offset + static_cast<long long>(p.n_local) > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int cols = (p.width + kTileW - 1) / kTileW;
-  const int blocks = cols * ((p.height + kBlockH - 1) / kBlockH);
+  const int rows = (p.pixel_offset + p.n_local - 1) / p.width -
+                   p.pixel_offset / p.width + 1;
+  const int blocks = cols * ((rows + kBlockH - 1) / kBlockH);
   const size_t smem = sizeof(float) * ((p.flags & kFlagMis) ? kMisFloats : 0) +
                       sphere_smem_bytes(p.n_spheres);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -7,7 +7,12 @@
 // sphere table, emission, the threefry-2x32 draws keyed by (pixel, frame,
 // sample, bounce, slot), the mirror / Fresnel-diffuse scatter, and the
 // Cornell kill of a path that misses.  Outputs are the mean RGB over the
-// samples, rgb [N,3], and the first-hit depth / depth_scale, depth [N].
+// samples, rgb [n,3], and the first-hit depth / depth_scale, depth [n].
+// A launch renders the raster range [pixel_offset, pixel_offset + n) of the
+// frame with the samples sample_offset, ..., sample_offset + spp - 1 (a
+// shard of parallel/sharding.py; the whole frame and 0 otherwise): thread i
+// takes pixel pixel_offset + i, whose global id drives its primary ray and
+// keys every draw, so shards tile together into the single-device image.
 // The plain PyTorch version is render/cuda_radiance.py::render_pass_reference
 // (generate_rays + render/integrator.py::render_pass).
 //
@@ -50,7 +55,10 @@
 // exact cuts alone must match bit for bit without FMA contraction; and the
 // exact cuts with a planted fault, cut (a) taken on Fresnel surfaces too,
 // which must differ from the parent design and break the contract on a
-// scene with specular walls.
+// scene with specular walls.  Two more planted faults of the shard offsets
+// (kFaultNoSampleOffset: the draws keyed by the local sample, and
+// kFaultLocalRng: the draws keyed by the local pixel while the primary ray
+// takes the global one) must break chip_smoke.py's reassembly checks.
 
 #include "common.cuh"
 
@@ -61,6 +69,8 @@ using namespace vpt;
 constexpr int kThreads = 128;
 constexpr int kParent = 8;
 constexpr int kFaultNoFresnel = 9;
+constexpr int kFaultNoSampleOffset = 10;
+constexpr int kFaultLocalRng = 11;
 
 // The parent design of the Cornell loop, kept for chip_smoke.py's check
 // that the cuts of common.cuh's trace() leave K1's image bit-identical
@@ -131,14 +141,18 @@ __global__ void __launch_bounds__(kThreads)
 radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres,
                 int n_spheres, uint32_t seed_lo, uint32_t seed_hi,
                 uint32_t frame, int width, int height, int spp, int bounces,
-                float depth_scale, float* __restrict__ rgb,
+                float depth_scale, int pixel_offset, uint32_t sample_offset,
+                int n_local, float* __restrict__ rgb,
                 float* __restrict__ depth_out) {
   extern __shared__ float smem[];  // [n_spheres, kCols] when they fit
   const float* sph = stage_spheres(smem, spheres, n_spheres);
 
-  const int n = width * height;
-  const int pixel = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pixel >= n) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_local) return;
+  const int pixel = pixel_offset + i;
+  // The ids that key the draws (the planted faults drop an offset).
+  const uint32_t key_pixel = kVariant == kFaultLocalRng ? i : pixel;
+  const uint32_t s0 = kVariant == kFaultNoSampleOffset ? 0u : sample_offset;
 
   // cam: origin, view dir, cx, cy (camera basis scaled by fov and aspect),
   // fresnel coef, fresnel pow.
@@ -153,8 +167,8 @@ radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres
     for (int s = 0; s < spp; ++s) {
       depth = 1.f;
       const bool alive = trace_parent(
-          sph, n_spheres, cam, d0, seed_lo, seed_hi, pixel, frame, s, bounces,
-          fc, fp, acc,
+          sph, n_spheres, cam, d0, seed_lo, seed_hi, key_pixel, frame, s0 + s,
+          bounces, fc, fp, acc,
           [&](int b, int, float, bool, const float* o, const float*,
               const float*, const Scatter& sc) {
             if (b == 0) {
@@ -167,7 +181,10 @@ radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres
     }
   } else {
     constexpr bool kFault = kVariant == kFaultNoFresnel;
-    constexpr unsigned kFast = kFault ? 0u : kVariant;
+    // The offset faults are the shipped instance but for the fault.
+    constexpr unsigned kFast =
+        kFault ? 0u : (kVariant >= kFaultNoSampleOffset ? kCornellFast
+                                                        : kVariant);
     Surface h0;
     h0.best = -1;
     float depth0 = 1.f;
@@ -181,8 +198,8 @@ radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres
     }
     for (int s = 0; s < spp; ++s) {
       const bool alive = trace<kFast, kFault>(
-          sph, n_spheres, h0, cam, d0, seed_lo, seed_hi, pixel, frame, s,
-          bounces, fc, fp, acc,
+          sph, n_spheres, h0, cam, d0, seed_lo, seed_hi, key_pixel, frame,
+          s0 + s, bounces, fc, fp, acc,
           [](int, const Surface&, const float*, const float*, const float*,
              const Bounce&) {});
       depth = alive ? depth0 : 0.f;
@@ -190,63 +207,78 @@ radiance_kernel(const float* __restrict__ cam, const float* __restrict__ spheres
   }
 
   const float fspp = static_cast<float>(spp);
-  rgb[3 * pixel + 0] = acc[0] / fspp;
-  rgb[3 * pixel + 1] = acc[1] / fspp;
-  rgb[3 * pixel + 2] = acc[2] / fspp;
-  depth_out[pixel] = depth;
+  rgb[3 * i + 0] = acc[0] / fspp;
+  rgb[3 * i + 1] = acc[1] / fspp;
+  rgb[3 * i + 2] = acc[2] / fspp;
+  depth_out[i] = depth;
 }
 
 template <int kVariant>
 int launch(const void* cam, const void* spheres, int n_spheres,
            unsigned int seed_lo, unsigned int seed_hi, unsigned int frame,
            int width, int height, int spp, int bounces, float depth_scale,
+           int pixel_offset, unsigned int sample_offset, int n_local,
            void* rgb, void* depth, cudaStream_t stream) {
-  const int n = width * height;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  if (pixel_offset < 0 || n_local <= 0 ||
+      static_cast<long long>(pixel_offset) + n_local >
+          static_cast<long long>(width) * height) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (n_local + kThreads - 1) / kThreads;
   radiance_kernel<kVariant><<<blocks, kThreads, sphere_smem_bytes(n_spheres),
                               stream>>>(
       static_cast<const float*>(cam), static_cast<const float*>(spheres),
       n_spheres, seed_lo, seed_hi, frame, width, height, spp, bounces,
-      depth_scale, static_cast<float*>(rgb), static_cast<float*>(depth));
+      depth_scale, pixel_offset, sample_offset, n_local,
+      static_cast<float*>(rgb), static_cast<float*>(depth));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches K1 on `stream` and returns cudaGetLastError() (0 on success).
-// All pointers are device pointers to contiguous float32: cam [14], spheres
-// [n_spheres, 14], rgb [width*height, 3], depth [width*height].
+// Launches K1 on `stream` over the pixels [pixel_offset, pixel_offset +
+// n_local) with the samples from sample_offset, and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a range
+// outside the frame).  All pointers are device pointers to contiguous
+// float32: cam [14], spheres [n_spheres, 14], rgb [n_local, 3], depth
+// [n_local].
 extern "C" int vpt_radiance(const void* cam, const void* spheres,
                             int n_spheres, unsigned int seed_lo,
                             unsigned int seed_hi, unsigned int frame,
                             int width, int height, int spp, int bounces,
-                            float depth_scale, void* rgb, void* depth,
-                            void* stream) {
+                            float depth_scale, int pixel_offset,
+                            unsigned int sample_offset, int n_local,
+                            void* rgb, void* depth, void* stream) {
   return launch<kCornellFast>(cam, spheres, n_spheres, seed_lo, seed_hi,
                               frame, width, height, spp, bounces,
-                              depth_scale, rgb, depth,
+                              depth_scale, pixel_offset, sample_offset,
+                              n_local, rgb, depth,
                               static_cast<cudaStream_t>(stream));
 }
 
 #ifdef VPT_CHECK_INSTANCES
 // Launches the check build's instance `variant` (0 the exact cuts alone, 8
-// the parent design, 9 the planted fault); as above, and
-// cudaErrorInvalidValue for another variant.
+// the parent design, 9 the planted Fresnel fault, 10 and 11 the planted
+// offset faults); as above, and cudaErrorInvalidValue for another variant.
 extern "C" int vpt_radiance_check(const void* cam, const void* spheres,
                                   int n_spheres, unsigned int seed_lo,
                                   unsigned int seed_hi, unsigned int frame,
                                   int width, int height, int spp, int bounces,
-                                  float depth_scale, void* rgb, void* depth,
-                                  void* stream, int variant) {
+                                  float depth_scale, int pixel_offset,
+                                  unsigned int sample_offset, int n_local,
+                                  void* rgb, void* depth, void* stream,
+                                  int variant) {
   auto* fn = launch<0>;
   switch (variant) {
     case 0: break;
     case kParent: fn = launch<kParent>; break;
     case kFaultNoFresnel: fn = launch<kFaultNoFresnel>; break;
+    case kFaultNoSampleOffset: fn = launch<kFaultNoSampleOffset>; break;
+    case kFaultLocalRng: fn = launch<kFaultLocalRng>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return fn(cam, spheres, n_spheres, seed_lo, seed_hi, frame, width, height,
-            spp, bounces, depth_scale, rgb, depth,
-            static_cast<cudaStream_t>(stream));
+            spp, bounces, depth_scale, pixel_offset, sample_offset, n_local,
+            rgb, depth, static_cast<cudaStream_t>(stream));
 }
 #endif

@@ -18,7 +18,7 @@ import torch
 
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.parallel.sharding import DeferredParams, TrainParams
-from vrenderer_pathtracer_tpu_torch.scene.scene import TRAIN_HDR_ITEM, MeshData, Scene
+from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData, Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
 
 
@@ -138,12 +138,9 @@ def train_params_from_numpy(params: Mapping, *, device) -> TrainParams:
     """A port ``TrainParams`` from a JAX ``TrainParams``'s leaves.
 
     ``camera`` is None or a JAX ``Camera``'s leaves, as for
-    :func:`camera_from_numpy`.  A trainable environment map in
-    ``TrainParams`` (``hdr``, trained through the XLA integrator there) is
-    not ported; a ``DeferredParams`` HDRI is (:func:`deferred_params_from_numpy`).
+    :func:`camera_from_numpy`; ``hdr`` is None or the trainable
+    environment map [H,W,3].
     """
-    if params.get("hdr") is not None:
-        raise NotImplementedError(f"TrainParams.hdr: {TRAIN_HDR_ITEM}")
     camera = params.get("camera")
     return TrainParams(
         color=_f32(params["color"], device),
@@ -152,6 +149,7 @@ def train_params_from_numpy(params: Mapping, *, device) -> TrainParams:
         fresnel_pow=_f32(params["fresnel_pow"], device),
         camera=None if camera is None else camera_from_numpy(camera,
                                                              device=device),
+        hdr=_opt_f32(params.get("hdr"), device),
     )
 
 

@@ -22,6 +22,14 @@ Every gradient function returns ``(loss, dcolor [Ns,3], demission [Ns,3],
 dfresnel_coef, dfresnel_pow)`` and, with ``with_camera``, a sixth element:
 a ``Camera`` whose leaves are the gradients with respect to ``origin``,
 ``yaw``, ``pitch`` and ``fov_deg``.
+
+Each takes a tile of the frame (``parallel/sharding.py``): the raster
+range ``[pixel_offset, pixel_offset + n_local_pixels)``, whose target is
+the tile's ``[n_local_pixels, 3]``.  The loss and the gradients keep the
+frame's normaliser ``1 / (N*3)``, so the tiles' values add up to the
+frame's.  K2 takes no sample offset: the loss is of the sample-mean image,
+so a sample shard cannot form its own residual (the sharded steps take the
+wavefront there).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core.camera import Camera
-from vrenderer_pathtracer_tpu_torch.render import cuda_radiance
+from vrenderer_pathtracer_tpu_torch.render import cuda_radiance, integrator
 from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
     pack_camera, pack_spheres, render_pass_reference)
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
@@ -64,16 +72,18 @@ def _camera_leaves(camera: Camera):
 
 
 def _plain_loss(scene, settings, camera, target, frame, fresnel_coef,
-                fresnel_pow, seed):
+                fresnel_pow, seed, pixel_offset=0, n_local_pixels=None):
     rgb, _ = render_pass_reference(scene, settings, camera, frame,
-                                   fresnel_coef, fresnel_pow, seed)
+                                   fresnel_coef, fresnel_pow, seed,
+                                   pixel_offset, 0, n_local_pixels)
     return torch.sum((rgb - target) ** 2) * (1.0 / (settings.n_pixels * 3))
 
 
 def cornell_loss_grads_reference(scene: Scene, settings: RenderSettings,
                                  camera: Camera, target, frame, fresnel_coef,
                                  fresnel_pow, seed: int = 0,
-                                 with_camera: bool = False):
+                                 with_camera: bool = False,
+                                 pixel_offset: int = 0, n_local_pixels=None):
     """The plain PyTorch version of K2: loss and gradients by autograd."""
     f32 = dict(dtype=torch.float32, device=scene.device)
     leaves = [scene.spheres.color, scene.spheres.emission,
@@ -87,7 +97,8 @@ def cornell_loss_grads_reference(scene: Scene, settings: RenderSettings,
         camera = Camera(*leaves[4:])
     with torch.enable_grad():
         loss = _plain_loss(scene.replace_spheres(color=color, emission=emission),
-                           settings, camera, target, frame, fc, fp, seed)
+                           settings, camera, target, frame, fc, fp, seed,
+                           pixel_offset, n_local_pixels)
         grads = torch.autograd.grad(loss, leaves)
     out = (loss.detach(), *grads[:4])
     return out + (Camera(*grads[4:]),) if with_camera else out
@@ -104,22 +115,28 @@ def _k2():
     fn = lib.vpt_grad
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32, i32,
-                   ptr, ptr, ptr, i32, ptr]
+                   i32, i32, ptr, ptr, ptr, i32, ptr]
     fn.restype = ctypes.c_int
     return fn, workspace
 
 
 def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
            target: torch.Tensor, frame: int, seed: int = 0,
-           with_camera: bool = False, fault: bool = False) -> torch.Tensor:
+           with_camera: bool = False, fault: bool = False,
+           pixel_offset: int = 0, n_local_pixels=None) -> torch.Tensor:
     """Launch K2 on packed tables (``cuda_radiance.pack_camera`` /
-    ``pack_spheres``) on the current stream; returns the reduced row ``[K]``
-    of sums (see ``csrc/grad.cu`` for the layout and :func:`unpack`).
+    ``pack_spheres``) on the current stream over the pixels
+    ``[pixel_offset, pixel_offset + n)`` (``n = n_local_pixels``, default the
+    rest of the frame; ``target`` is their ``[n, 3]``); returns the reduced
+    row ``[K]`` of sums (see ``csrc/grad.cu`` for the layout and
+    :func:`unpack`).
     ``fault`` launches the instance with a planted fault (channel 1's
     unit-g sums scaled by channel 0's g; material-only), for
     ``chip_smoke.py``'s check that the contract catches it."""
     device = cam.device
-    n = settings.n_pixels
+    if not 0 < settings.n_pixels < 2 ** 31:
+        raise ValueError(f"{settings.n_pixels} pixels is out of the kernel's range")
+    off, n = integrator.pixel_range(settings, pixel_offset, n_local_pixels)
     for name, t, shape in (("cam", cam, (14,)), ("spheres", sph, None),
                            ("target", target, (n, 3))):
         if t.device != device or device.type != "cuda":
@@ -130,8 +147,6 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
             raise ValueError(f"K2 {name} has shape {tuple(t.shape)}, want {shape}")
     if sph.dim() != 2 or sph.shape[1] != 14 or not 0 < sph.shape[0] <= MAX_SPHERES:
         raise ValueError(f"K2 spheres table has shape {tuple(sph.shape)}")
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"{n} pixels is out of the kernel's range")
     records = settings.samples_per_pass * settings.bounces
     if not 0 < records <= MAX_RECORDS:
         raise ValueError(f"K2 takes 1..{MAX_RECORDS} samples x bounces, not {records}")
@@ -147,7 +162,7 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
                  seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
                  int(frame) & 0xFFFFFFFF, settings.width, settings.height,
                  settings.samples_per_pass, settings.bounces, int(with_camera),
-                 target.data_ptr(), work.data_ptr(), row.data_ptr(),
+                 off, n, target.data_ptr(), work.data_ptr(), row.data_ptr(),
                  int(fault), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {err}")
@@ -187,7 +202,8 @@ def _camera_pullback(camera: Camera, settings: RenderSettings,
 
 def cornell_loss_grads(scene: Scene, settings: RenderSettings, camera: Camera,
                        target, frame, fresnel_coef, fresnel_pow,
-                       seed: int = 0, with_camera: bool = False):
+                       seed: int = 0, with_camera: bool = False,
+                       pixel_offset: int = 0, n_local_pixels=None):
     """L2 loss and gradients of one pass through K2.
 
     CPU tensors take :func:`cornell_loss_grads_reference`.  CUDA tensors
@@ -198,7 +214,8 @@ def cornell_loss_grads(scene: Scene, settings: RenderSettings, camera: Camera,
     if device.type == "cpu":
         return cornell_loss_grads_reference(scene, settings, camera, target,
                                             frame, fresnel_coef, fresnel_pow,
-                                            seed, with_camera)
+                                            seed, with_camera, pixel_offset,
+                                            n_local_pixels)
     if device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA devices, not {device}")
     if not supports(scene, settings):
@@ -212,7 +229,8 @@ def cornell_loss_grads(scene: Scene, settings: RenderSettings, camera: Camera,
         cam = pack_camera(camera, settings, fresnel_coef, fresnel_pow)
         sph = pack_spheres(scene.spheres)
     out, dcam = unpack(launch(cam, sph, settings, target, frame, seed,
-                              with_camera),
+                              with_camera, pixel_offset=pixel_offset,
+                              n_local_pixels=n_local_pixels),
                        scene.spheres.count, settings.n_pixels)
     if not with_camera:
         return out
@@ -230,11 +248,11 @@ class CornellLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, color, emission, fresnel_coef, fresnel_pow, origin, yaw,
                 pitch, fov_deg, scene, settings, target, frame, seed,
-                with_camera):
+                with_camera, pixel_offset=0, n_local_pixels=None):
         out = cornell_loss_grads(
             scene.replace_spheres(color=color, emission=emission), settings,
             Camera(origin, yaw, pitch, fov_deg), target, frame, fresnel_coef,
-            fresnel_pow, seed, with_camera)
+            fresnel_pow, seed, with_camera, pixel_offset, n_local_pixels)
         grads = list(out[1:5])
         grads += _camera_leaves(out[5]) if with_camera else [None] * 4
         ctx.save_for_backward(*grads)
@@ -244,13 +262,15 @@ class CornellLoss(torch.autograd.Function):
     def backward(ctx, grad_output):
         grads = [grad_output * g if need and g is not None else None
                  for g, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None, None)
 
 
 def cornell_loss(params, scene: Scene, settings: RenderSettings,
-                 camera: Camera, target, frame, seed: int = 0):
+                 camera: Camera, target, frame, seed: int = 0,
+                 pixel_offset: int = 0, n_local_pixels=None):
     """The L2 train loss of ``params`` (a ``parallel.sharding.TrainParams``)
-    grafted into ``scene``; differentiable in every leaf of ``params``.
+    grafted into ``scene``; differentiable in every leaf of ``params``
+    (``params.hdr`` aside: K2 has none).  A tile's loss with the offsets.
 
     ``params.camera``, when given, replaces ``camera`` and receives
     gradients.  On the card this is :class:`CornellLoss` (one K2 launch);
@@ -262,7 +282,8 @@ def cornell_loss(params, scene: Scene, settings: RenderSettings,
         return _plain_loss(
             scene.replace_spheres(color=params.color, emission=params.emission),
             settings, cam, target, frame, params.fresnel_coef,
-            params.fresnel_pow, seed)
+            params.fresnel_pow, seed, pixel_offset, n_local_pixels)
     return CornellLoss.apply(params.color, params.emission, params.fresnel_coef,
                              params.fresnel_pow, *_camera_leaves(cam), scene,
-                             settings, target, frame, seed, with_camera)
+                             settings, target, frame, seed, with_camera,
+                             pixel_offset, n_local_pixels)

@@ -38,6 +38,12 @@ This module:
   the plain version (``records_reference`` + ``compose``, the same function
   in both modes) for CPU tensors;
 * ``records_agreement`` — how two record sets agree (the card's contract).
+
+A pass may take a shard of the frame (``parallel/sharding.py``): the raster
+range ``[pixel_offset, pixel_offset + n_local_pixels)`` with the samples
+from ``sample_offset`` (defaults: the whole frame, sample 0).  The records
+and images are then the range's, ``[.., n_local_pixels]``, and
+:func:`compose` fetches the tables for those records alone.
 """
 
 from __future__ import annotations
@@ -185,8 +191,11 @@ def _intersect(scene, settings, ray_o, ray_d, alive):
 
 @torch.no_grad()
 def records_reference(scene: Scene, settings: RenderSettings, camera: Camera,
-                      frame: int, fresnel_coef, fresnel_pow, seed: int = 0):
-    """The plain PyTorch version of K4: its records ``[n_slots, N]``.
+                      frame: int, fresnel_coef, fresnel_pow, seed: int = 0,
+                      pixel_offset: int = 0, sample_offset: int = 0,
+                      n_local_pixels=None):
+    """The plain PyTorch version of K4: its records ``[n_slots, n]`` of the
+    pixel range and samples the offsets name.
 
     The samples run as lanes of one batch (``spp * N``), through the
     integrator's intersection (spheres, then the example sphere or the mesh
@@ -201,15 +210,18 @@ def records_reference(scene: Scene, settings: RenderSettings, camera: Camera,
     defer = Defer(settings)
     idx, n_slots = layout(settings, defer)
     w, h = settings.width, settings.height
-    n, spp, bounces = w * h, settings.samples_per_pass, settings.bounces
+    off, n = integrator.pixel_range(settings, pixel_offset, n_local_pixels)
+    spp, bounces = settings.samples_per_pass, settings.bounces
     dev = scene.device
     mis = settings.brdf_importance_sampling and defer.merl
     shade_settings = settings.replace(has_diffuse_map=False)  # colour 1
     sampler = brdf_sampling.build_merl_sampler(scene.brdf) if mis else None
 
     ray_o0, ray_d0 = generate_rays(camera, w, h)
-    ids = pixel_ids(w, h, dev).repeat(spp)
-    sids = torch.arange(spp, dtype=torch.int64, device=dev).repeat_interleave(n)
+    ray_o0, ray_d0 = ray_o0[off:off + n], ray_d0[off:off + n]
+    ids = pixel_ids(w, h, dev)[off:off + n].repeat(spp)
+    sids = torch.arange(sample_offset, sample_offset + spp, dtype=torch.int64,
+                        device=dev).repeat_interleave(n)
     o, d = ray_o0.repeat(spp, 1), ray_d0.repeat(spp, 1)
     f32 = dict(dtype=torch.float32, device=dev)
     m = torch.ones((spp * n, 3), **f32)
@@ -311,7 +323,8 @@ class _Params(ctypes.Structure):
         ("depth_scale", ctypes.c_float), ("fault_arg", ctypes.c_float)] + [
         (name, ctypes.c_void_p) for name in ("hdr", "tex", "brdf")] + [
         (name, ctypes.c_int) for name in (
-            "hdr_w", "hdr_h", "tex_w", "tex_h", "bilinear", "direct")]
+            "hdr_w", "hdr_h", "tex_w", "tex_h", "bilinear", "direct",
+            "pixel_offset", "n_local")] + [("sample_offset", ctypes.c_uint)]
 
 
 # The kernel's work counters (csrc/mesh.cu kStats), in order; the last two
@@ -395,11 +408,13 @@ def _table(name, t, device, shape):
 def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
               settings: RenderSettings, frame: int, seed: int = 0, *,
               direct: bool = False, stats=None, fault: int = NO_FAULT,
-              fault_arg: float = 0.0) -> torch.Tensor:
+              fault_arg: float = 0.0, pixel_offset: int = 0,
+              sample_offset: int = 0, n_local_pixels=None) -> torch.Tensor:
     """Launch K4 on packed tables (``cuda_radiance.pack_camera`` /
-    ``pack_spheres``) on the current stream.  Returns the records
-    ``[n_slots, N]`` in :func:`layout`'s order, or with ``direct`` the
-    composed pass, ``[4, N]``: depth, then the rgb mean (what
+    ``pack_spheres``) on the current stream, over the pixels and samples
+    the offsets name (module docstring; ``n`` pixels).  Returns the records
+    ``[n_slots, n]`` in :func:`layout`'s order, or with ``direct`` the
+    composed pass, ``[4, n]``: depth, then the rgb mean (what
     :func:`compose` makes of the records; the kernel fetches the HDRI,
     texture and MERL values itself).  ``stats`` (an int64 [len(STATS)] CUDA
     tensor) makes the kernel add its work counts to it; ``fault`` plants one
@@ -420,9 +435,11 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
     if (fault in DIRECT_FAULTS) != (direct and fault != NO_FAULT):
         raise ValueError(f"K4 fault {fault} does not apply to the "
                          f"{'direct' if direct else 'records'} mode")
-    n = settings.n_pixels
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"{n} pixels is out of the kernel's range")
+    if not 0 < settings.n_pixels < 2 ** 31:
+        raise ValueError(f"{settings.n_pixels} pixels is out of the kernel's range")
+    off, n = integrator.pixel_range(settings, pixel_offset, n_local_pixels)
+    if not 0 <= sample_offset < 2 ** 32 - settings.samples_per_pass:
+        raise ValueError(f"sample_offset {sample_offset} is out of range")
     defer = Defer(settings)
     idx, n_slots = layout(settings, defer)
     mis = settings.brdf_importance_sampling and defer.merl
@@ -496,6 +513,7 @@ def launch_k4(cam: torch.Tensor, sph: torch.Tensor, scene: Scene,
     p.seed_lo, p.seed_hi = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
     p.frame = int(frame) & 0xFFFFFFFF
     p.depth_scale = settings.depth_scale
+    p.pixel_offset, p.n_local, p.sample_offset = off, n, sample_offset
     fn = _k4()
     with torch.cuda.device(device):
         err = fn(ctypes.addressof(p), torch.cuda.current_stream(device).cuda_stream)
@@ -602,8 +620,11 @@ def _refuse_grad(scene: Scene, camera: Camera, fresnel_coef, fresnel_pow):
 
 
 def render_pass_mesh(scene: Scene, settings: RenderSettings, camera: Camera,
-                     frame: int, fresnel_coef, fresnel_pow, seed: int = 0):
-    """One progressive pass through K4: ``(rgb_mean [N,3], depth [N])``.
+                     frame: int, fresnel_coef, fresnel_pow, seed: int = 0,
+                     pixel_offset: int = 0, sample_offset: int = 0,
+                     n_local_pixels=None):
+    """One progressive pass through K4: ``(rgb_mean [n,3], depth [n])`` over
+    the pixels and samples the offsets name (module docstring).
 
     CUDA tensors launch K4 (built at first use) in the pass's
     :func:`mode`: direct (the kernel's own ``[4, N]``), or the records and
@@ -623,15 +644,17 @@ def render_pass_mesh(scene: Scene, settings: RenderSettings, camera: Camera,
         raise NotImplementedError("K4 does not cover this scene (cuda_mesh.supports)")
     _refuse_grad(scene, camera, fresnel_coef, fresnel_pow)
     pass_mode = mode(scene)
+    shard = dict(pixel_offset=pixel_offset, sample_offset=sample_offset,
+                 n_local_pixels=n_local_pixels)
     if device.type == "cpu":
         records = records_reference(scene, settings, camera, frame,
-                                    fresnel_coef, fresnel_pow, seed)
+                                    fresnel_coef, fresnel_pow, seed, **shard)
         return compose(records, scene, settings)
     args = (pack_camera(camera, settings, fresnel_coef, fresnel_pow),
             pack_spheres(scene.spheres), scene, settings, frame, seed)
     if pass_mode == RECORDS:
-        return compose(launch_k4(*args), scene, settings)
-    out = launch_k4(*args, direct=True)
+        return compose(launch_k4(*args, **shard), scene, settings)
+    out = launch_k4(*args, direct=True, **shard)
     return out[1:].T, out[0]
 
 

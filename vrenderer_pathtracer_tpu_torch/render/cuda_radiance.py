@@ -13,6 +13,13 @@ what it computes and what bounds it on the card.  This module:
   or raise;
 * ``launch`` — the launch itself on packed tables; ``launch.count``
   counts kernel launches.
+
+Every pass takes a shard's place in the frame (``parallel/sharding.py``):
+``pixel_offset`` and ``n_local_pixels`` name the raster range
+``[pixel_offset, pixel_offset + n_local_pixels)`` it renders, and
+``sample_offset`` its first sample id; the defaults are the whole frame
+and sample 0.  The kernel takes them as launch arguments, beside the
+packed tables.
 """
 
 from __future__ import annotations
@@ -79,15 +86,19 @@ def _k1():
     fn = build.load("radiance").vpt_radiance
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn.argtypes = [ptr, ptr, i32, u32, u32, u32, i32, i32, i32, i32,
-                   ctypes.c_float, ptr, ptr, ptr]
+                   ctypes.c_float, i32, u32, i32, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
-           frame: int, seed: int = 0):
+           frame: int, seed: int = 0, pixel_offset: int = 0,
+           sample_offset: int = 0, n_local_pixels=None):
     """Launch K1 on packed tables (:func:`pack_camera`,
-    :func:`pack_spheres`) on the current stream; ``(rgb [N,3], depth [N])``.
+    :func:`pack_spheres`) on the current stream over the pixels
+    ``[pixel_offset, pixel_offset + n)`` (``n = n_local_pixels``, default
+    the rest of the frame) with the samples from ``sample_offset``;
+    ``(rgb [n,3], depth [n])``.
     """
     device = cam.device
     for name, t, shape in (("cam", cam, (14,)), ("spheres", sph, None)):
@@ -99,9 +110,11 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
             raise ValueError(f"K1 {name} table has shape {tuple(t.shape)}")
     if sph.dim() != 2 or sph.shape[1] != 14 or not 0 < sph.shape[0] < 2 ** 24:
         raise ValueError(f"K1 spheres table has shape {tuple(sph.shape)}")
-    n = settings.n_pixels
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"{n} pixels is out of the kernel's range")
+    if not 0 < settings.n_pixels < 2 ** 31:
+        raise ValueError(f"{settings.n_pixels} pixels is out of the kernel's range")
+    off, n = integrator.pixel_range(settings, pixel_offset, n_local_pixels)
+    if not 0 <= sample_offset < 2 ** 32 - settings.samples_per_pass:
+        raise ValueError(f"sample_offset {sample_offset} is out of range")
 
     rgb = torch.empty((n, 3), dtype=torch.float32, device=device)
     depth = torch.empty((n,), dtype=torch.float32, device=device)
@@ -111,8 +124,8 @@ def launch(cam: torch.Tensor, sph: torch.Tensor, settings: RenderSettings,
                  seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
                  int(frame) & 0xFFFFFFFF, settings.width, settings.height,
                  settings.samples_per_pass, settings.bounces,
-                 settings.depth_scale, rgb.data_ptr(), depth.data_ptr(),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 settings.depth_scale, off, sample_offset, n, rgb.data_ptr(),
+                 depth.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
     launch.count += 1
@@ -123,8 +136,11 @@ launch.count = 0
 
 
 def render_pass_cuda(scene: Scene, settings: RenderSettings, camera: Camera,
-                     frame: int, fresnel_coef, fresnel_pow, seed: int = 0):
-    """One progressive pass through K1: ``(rgb_mean [N,3], depth [N])``.
+                     frame: int, fresnel_coef, fresnel_pow, seed: int = 0,
+                     pixel_offset: int = 0, sample_offset: int = 0,
+                     n_local_pixels=None):
+    """One progressive pass through K1: ``(rgb_mean [n,3], depth [n])``
+    over the pixel range and samples the offsets name (module docstring).
 
     CPU tensors take :func:`render_pass_reference`.  CUDA tensors launch
     the kernel on the current stream; a failed build or launch raises.
@@ -132,7 +148,9 @@ def render_pass_cuda(scene: Scene, settings: RenderSettings, camera: Camera,
     device = scene.device
     if device.type == "cpu":
         return render_pass_reference(scene, settings, camera, frame,
-                                     fresnel_coef, fresnel_pow, seed)
+                                     fresnel_coef, fresnel_pow, seed,
+                                     pixel_offset, sample_offset,
+                                     n_local_pixels)
     if device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA devices, not {device}")
     if not supports(scene, settings):
@@ -141,4 +159,5 @@ def render_pass_cuda(scene: Scene, settings: RenderSettings, camera: Camera,
     if camera.device != device:
         raise ValueError(f"camera on {camera.device}, scene on {device}")
     return launch(pack_camera(camera, settings, fresnel_coef, fresnel_pow),
-                  pack_spheres(scene.spheres), settings, frame, seed)
+                  pack_spheres(scene.spheres), settings, frame, seed,
+                  pixel_offset, sample_offset, n_local_pixels)

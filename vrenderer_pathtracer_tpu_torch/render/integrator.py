@@ -388,12 +388,14 @@ def radiance(scene: Scene, settings: RenderSettings, ray_o, ray_d, pixel_ids,
 
 
 def render_pass(scene: Scene, settings: RenderSettings, ray_o, ray_d,
-                pixel_ids, frame, fresnel_coef, fresnel_pow, seed: int = 0):
+                pixel_ids, frame, fresnel_coef, fresnel_pow, seed: int = 0,
+                sample_offset: int = 0):
     """One progressive pass: ``samples_per_pass`` estimates per pixel.
 
     Samples are batched into the lane dimension (B = N * S), in chunks of
-    ``samples_per_chunk`` to bound memory.  Returns
-    ``(rgb_mean [N,3], depth [N])``.
+    ``samples_per_chunk`` to bound memory.  ``sample_offset`` shifts the
+    sample ids of the draws, so that a sample shard draws its own streams
+    (``parallel/sharding.py``).  Returns ``(rgb_mean [N,3], depth [N])``.
     """
     n = ray_o.shape[0]
     s = settings.samples_per_pass
@@ -407,8 +409,9 @@ def render_pass(scene: Scene, settings: RenderSettings, ray_o, ray_d,
         big_o = ray_o.repeat(chunk, 1)
         big_d = ray_d.repeat(chunk, 1)
         big_ids = pixel_ids.repeat(chunk)
-        sample_ids = torch.arange(c0, c0 + chunk, dtype=torch.int64,
-                                  device=ray_o.device).repeat_interleave(n)
+        sample_ids = torch.arange(
+            sample_offset + c0, sample_offset + c0 + chunk, dtype=torch.int64,
+            device=ray_o.device).repeat_interleave(n)
         rgb_c, depth_c = radiance(scene, settings, big_o, big_d, big_ids,
                                   sample_ids, frame, fresnel_coef,
                                   fresnel_pow, seed)
@@ -417,12 +420,34 @@ def render_pass(scene: Scene, settings: RenderSettings, ray_o, ray_d,
     return rgb_sum / s, depth
 
 
+def pixel_range(settings: RenderSettings, pixel_offset: int = 0,
+                n_local_pixels=None) -> tuple:
+    """``(offset, n)`` of the raster range ``[offset, offset + n)`` a pass
+    renders: the whole frame by default; raises if it leaves the frame."""
+    n = settings.n_pixels - pixel_offset if n_local_pixels is None \
+        else n_local_pixels
+    if pixel_offset < 0 or n <= 0 or pixel_offset + n > settings.n_pixels:
+        raise ValueError(f"pixels [{pixel_offset}, {pixel_offset + n}) are "
+                         f"not in the frame's {settings.n_pixels}")
+    return pixel_offset, n
+
+
 def render_camera_pass(scene: Scene, settings: RenderSettings, camera,
-                       frame, fresnel_coef, fresnel_pow, seed: int = 0):
+                       frame, fresnel_coef, fresnel_pow, seed: int = 0,
+                       pixel_offset: int = 0, sample_offset: int = 0,
+                       n_local_pixels=None):
     """One pass from the camera: ``generate_rays`` + :func:`render_pass`,
-    ``(rgb_mean [N,3], depth [N])``.  K1's plain version, and the pass of
-    every scene K1 does not cover."""
+    ``(rgb_mean [n,3], depth [n])``.  K1's plain version, and the pass of
+    every scene K1 does not cover.
+
+    A shard renders the raster range ``[pixel_offset, pixel_offset +
+    n_local_pixels)`` of the frame (default: the whole frame) with the
+    samples ``sample_offset, ...``: its pixels' global ids key the draws,
+    so shards tile together into the single-device image."""
+    off, n = pixel_range(settings, pixel_offset, n_local_pixels)
     ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
     ids = pixel_ids(settings.width, settings.height, scene.device)
+    if n != settings.n_pixels:
+        ray_o, ray_d, ids = ray_o[off:off + n], ray_d[off:off + n], ids[off:off + n]
     return render_pass(scene, settings, ray_o, ray_d, ids, frame,
-                       fresnel_coef, fresnel_pow, seed)
+                       fresnel_coef, fresnel_pow, seed, sample_offset)

@@ -32,11 +32,13 @@ from vrenderer_pathtracer_tpu_torch.utils.profiling import synchronize
 
 def checkpoint_state(renderer: Renderer) -> dict:
     """The state that fixes the rest of the render, as host tensors: the
-    accumulation buffer, frame, seed, camera, the Fresnel sliders and the
-    last depth, under the JAX ``checkpoint_state``'s keys."""
+    accumulation buffer (the whole frame's, gathered over the tiles of a
+    sharded renderer, so every rank must call this), frame, seed, camera,
+    the Fresnel sliders and the last depth, under the JAX
+    ``checkpoint_state``'s keys."""
     r = renderer
     state = {
-        "accum": r._accum,
+        "accum": r.accumulation(),
         "frame": torch.tensor(r.frame, dtype=torch.int64),
         "seed": torch.tensor(r.seed, dtype=torch.int64),
         "camera": {f.name: getattr(r.camera, f.name)
@@ -57,11 +59,17 @@ def checkpoint_state(renderer: Renderer) -> dict:
 
 def save_checkpoint(renderer: Renderer, path) -> None:
     """Write :func:`checkpoint_state` to ``path``, atomically: a stopped
-    write leaves the previous checkpoint in place."""
+    write leaves the previous checkpoint in place.  Every rank of a sharded
+    renderer calls it; rank 0 writes."""
+    from vrenderer_pathtracer_tpu_torch.parallel.multihost import is_main_process
+
+    state = checkpoint_state(renderer)
+    if not is_main_process():
+        return
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    torch.save(checkpoint_state(renderer), tmp)
+    torch.save(state, tmp)
     os.replace(tmp, path)
 
 
@@ -72,12 +80,7 @@ def restore_checkpoint(renderer: Renderer, path) -> Renderer:
                        weights_only=True)
     r = renderer
     dev = r.device
-    accum = state["accum"]
-    if tuple(accum.shape) != tuple(r._accum.shape):
-        raise ValueError(f"checkpoint accumulation {tuple(accum.shape)} does "
-                         f"not fit a {r.settings.width}x{r.settings.height} "
-                         "renderer")
-    r._accum = accum.to(dev, copy=True)
+    r.set_accumulation(state["accum"])
     r.frame = int(state["frame"])
     r.seed = int(state["seed"])
     r.camera = Camera(**{k: v.to(dev) for k, v in state["camera"].items()})
@@ -85,6 +88,7 @@ def restore_checkpoint(renderer: Renderer, path) -> Renderer:
     r.fresnel_pow = state["fresnel_pow"].to(dev)
     depth = state.get("depth")
     r._last_depth = None if depth is None else depth.to(dev)
+    r._sharded = None  # a sharded step takes the restored camera and sliders
     return r
 
 

@@ -10,8 +10,11 @@ mesh, on the card) for the rest and the plain integrator on the CPU; then
 the accumulation, the tonemap and, with ``use_fxaa``, FXAA on the
 tonemapped image.
 
-Parts of the JAX ``Renderer`` that the port has not reached raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+With a ``device_mesh`` (``parallel/sharding.py::make_render_mesh``) each
+rank holds its tile of the accumulation and renders it through
+``sharded_render_step``; ``render`` gathers the image and depth over the
+tiles (``parallel/multihost.py::gather_image``), so every rank returns the
+whole frame, and applies FXAA to the gathered frame.
 """
 
 from __future__ import annotations
@@ -33,27 +36,23 @@ from vrenderer_pathtracer_tpu_torch.scene.scene import (
 from vrenderer_pathtracer_tpu_torch.scene.spheres import build_sphere_set
 from vrenderer_pathtracer_tpu_torch.utils.profiling import RenderStats, synchronize
 
-SHARDING_ITEM = "ROADMAP Queue 1 item 13 (parallel/sharding.py)"
 DIFFUSE, NORMAL, SPECULAR = 0, 1, 2  # texture types (reference vTextureType)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: {item}")
-
-
 def render_pass(scene, settings, camera, frame, fresnel_coef, fresnel_pow,
-                seed=0):
+                seed=0, pixel_offset=0, sample_offset=0, n_local_pixels=None):
     """One pass on the backend ``settings.radiance_kernel`` names (resolved
-    by ``settings_for_scene``): ``(rgb_mean [N,3], depth [N])``."""
+    by ``settings_for_scene``): ``(rgb_mean [n,3], depth [n])`` of the raster
+    range ``[pixel_offset, pixel_offset + n_local_pixels)`` (default the
+    whole frame) with the samples from ``sample_offset``."""
+    args = (scene, settings, camera, frame, fresnel_coef, fresnel_pow, seed,
+            pixel_offset, sample_offset, n_local_pixels)
     if settings.radiance_kernel == "cuda":
-        return render_pass_cuda(scene, settings, camera, frame, fresnel_coef,
-                                fresnel_pow, seed)
+        return render_pass_cuda(*args)
     if settings.radiance_kernel == "cuda_mesh":
-        return render_pass_mesh(scene, settings, camera, frame, fresnel_coef,
-                                fresnel_pow, seed)
+        return render_pass_mesh(*args)
     if settings.radiance_kernel in ("wavefront", "torch"):
-        return integrator.render_camera_pass(scene, settings, camera, frame,
-                                             fresnel_coef, fresnel_pow, seed)
+        return integrator.render_camera_pass(*args)
     raise ValueError(f"unresolved radiance_kernel {settings.radiance_kernel!r}"
                      " (settings_for_scene resolves it)")
 
@@ -76,8 +75,9 @@ class Renderer:
     def __init__(self, width: int = 512, height: int = 512, *,
                  settings: Optional[RenderSettings] = None, seed: int = 0,
                  device="cuda", device_mesh=None):
-        if device_mesh is not None:
-            _not_ported("device_mesh (sharded rendering)", SHARDING_ITEM)
+        """``device_mesh``: an optional ``(tiles, samples)`` mesh
+        (``parallel.make_render_mesh``) of ``device``'s type; passes then
+        run sharded over it.  None: one device."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r} but no CUDA device is "
@@ -85,6 +85,18 @@ class Renderer:
         if self.device.type == "cuda" and self.device.index is None:
             # The tensors' own device, so that device checks compare equal.
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if device_mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(device_mesh, DeviceMesh):
+                raise TypeError("device_mesh must be a torch.distributed "
+                                "DeviceMesh (parallel.make_render_mesh), not "
+                                f"{type(device_mesh).__name__}")
+            if device_mesh.device_type != self.device.type:
+                raise ValueError(f"device_mesh of {device_mesh.device_type!r} "
+                                 f"devices, renderer on {self.device}")
+        self.device_mesh = device_mesh
+        self._sharded = None  # (step, scene, camera, sliders) of the mesh
         base = settings or RenderSettings()
         # The requested backends and compact waves: every scene edit
         # re-resolves them from the current scene (settings_for_scene), so
@@ -108,11 +120,19 @@ class Renderer:
     # -- state management ---------------------------------------------------
 
     def clear_buffer(self):
-        """frame=1 and a zeroed accumulation buffer."""
+        """frame=1 and a zeroed accumulation buffer (this rank's tile of it
+        with a ``device_mesh``); a sharded renderer rebuilds its step."""
         self.frame = 1
-        self._accum = torch.zeros((self.settings.n_pixels, 3),
-                                  dtype=torch.float32, device=self.device)
+        n = self.settings.n_pixels
+        if self.device_mesh is not None:
+            from vrenderer_pathtracer_tpu_torch.parallel.sharding import _check_divisible
+
+            _check_divisible(self.settings, self.device_mesh)
+            n //= self.device_mesh.size(0)
+        self._accum = torch.zeros((n, 3), dtype=torch.float32,
+                                  device=self.device)
         self._last_depth = None
+        self._sharded = None
 
     def _mutate(self, **scene_updates):
         """Apply scene edits, re-resolve the backends, reset the frame."""
@@ -247,11 +267,14 @@ class Renderer:
         queued.
         """
         t0 = time.perf_counter() if sync else 0.0
-        img, depth = _render_step(
-            self.scene, self.camera, self._accum, self.frame,
-            self.fresnel_coef, self.fresnel_pow,
-            (self.fxaa_subpix_quality, self.fxaa_edge_threshold),
-            self.settings, self.seed)
+        if self.device_mesh is not None:
+            img, depth = self._render_sharded()
+        else:
+            img, depth = _render_step(
+                self.scene, self.camera, self._accum, self.frame,
+                self.fresnel_coef, self.fresnel_pow,
+                (self.fxaa_subpix_quality, self.fxaa_edge_threshold),
+                self.settings, self.seed)
         self.frame += 1
         self._last_depth = depth
         if sync:
@@ -265,11 +288,60 @@ class Renderer:
         h, w = self.settings.height, self.settings.width
         return img.reshape(h, w, 3), depth.reshape(h, w)
 
+    def _render_sharded(self):
+        """A pass through the sharded step: the tiles' image and depth
+        gathered into the frame, then FXAA on the gathered image (it reads
+        across tile edges).  The step, and the scene, camera and sliders
+        replicated from rank 0, are rebuilt after every edit."""
+        from vrenderer_pathtracer_tpu_torch.parallel.multihost import gather_image
+        from vrenderer_pathtracer_tpu_torch.parallel.sharding import (
+            replicate, sharded_render_step)
+
+        mesh = self.device_mesh
+        if self._sharded is None:
+            self._sharded = (
+                sharded_render_step(mesh, self.settings, seed=self.seed),
+                *replicate(mesh, (self.scene, self.camera, self.fresnel_coef,
+                                  self.fresnel_pow)))
+        step, scene, camera, fc, fp = self._sharded
+        self._accum, img, depth = step(scene, camera, self._accum, self.frame,
+                                       fc, fp)
+        img, depth = gather_image(img, mesh), gather_image(depth, mesh)
+        if self.settings.use_fxaa:
+            h, w = self.settings.height, self.settings.width
+            img = fxaa(img.reshape(h, w, 3), self.fxaa_subpix_quality,
+                       self.fxaa_edge_threshold).reshape(-1, 3)
+        return img, depth
+
+    def accumulation(self) -> torch.Tensor:
+        """The whole frame's accumulation buffer [N,3] (gathered over the
+        tiles with a ``device_mesh``; the buffer itself otherwise)."""
+        if self.device_mesh is None:
+            return self._accum
+        from vrenderer_pathtracer_tpu_torch.parallel.multihost import gather_image
+
+        return gather_image(self._accum, self.device_mesh)
+
+    def set_accumulation(self, accum: torch.Tensor) -> None:
+        """Set the whole frame's accumulation buffer [N,3] (with a
+        ``device_mesh``, this rank keeps its tile of it)."""
+        if tuple(accum.shape) != (self.settings.n_pixels, 3):
+            raise ValueError(f"accumulation {tuple(accum.shape)} does not fit "
+                             f"a {self.settings.width}x{self.settings.height} "
+                             "renderer")
+        accum = accum.to(self.device, dtype=torch.float32, copy=True)
+        if self.device_mesh is not None:
+            from vrenderer_pathtracer_tpu_torch.parallel.sharding import shard_pixels
+
+            accum = shard_pixels(self.device_mesh, accum)
+        self._accum = accum
+
     def current_frame(self):
         """The existing accumulation as (image01 [H,W,3], depth [H,W]),
         without running a pass."""
         h, w = self.settings.height, self.settings.width
-        img = tonemap(self._accum, max(self.frame - 1, 1), self.settings.gamma)
+        img = tonemap(self.accumulation(), max(self.frame - 1, 1),
+                      self.settings.gamma)
         if self.settings.use_fxaa:
             img = fxaa(img.reshape(h, w, 3), self.fxaa_subpix_quality,
                        self.fxaa_edge_threshold)

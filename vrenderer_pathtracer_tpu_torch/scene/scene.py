@@ -16,9 +16,6 @@ import torch
 from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet, build_sphere_set
 
-TRAIN_HDR_ITEM = ("ROADMAP Queue 1 item 15 (TrainParams.hdr: a trainable "
-                  "environment map through the wavefront integrator)")
-
 _MAPS = ("hdr", "diffuse_map", "normal_map", "specular_map")
 
 
@@ -203,9 +200,11 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
     CUDA scene never resolves to a plain version, and a request that does
     not match the device or the scene raises, except ``"wavefront"`` on
     the card, which runs any CUDA scene (the comparison pass of a kernel's
-    scene).
+    scene).  Inside ``utils.debug.interpret_kernels()`` (the plain
+    versions, on CPU tensors) a CUDA scene raises.
     """
     from vrenderer_pathtracer_tpu_torch.render import cuda_mesh, cuda_radiance
+    from vrenderer_pathtracer_tpu_torch.utils.debug import interpreting
 
     resolved = settings.replace(
         has_diffuse_map=scene.diffuse_map is not None,
@@ -216,6 +215,11 @@ def settings_for_scene(scene: Scene, settings: RenderSettings) -> RenderSettings
         has_hdr=scene.hdr is not None,
     )
     on_cuda = scene.device.type == "cuda"
+    if on_cuda and interpreting():
+        raise ValueError(
+            "interpret_kernels() runs the plain versions, which take CPU "
+            "tensors: build the scene with device='cpu' (a CUDA scene runs "
+            "the kernels)")
     if not on_cuda:
         radiance = "torch"
     elif cuda_radiance.supports(scene, resolved):
