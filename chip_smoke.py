@@ -245,6 +245,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    --gloo-rank``, a process each, each with a time limit): K1 with its
    offsets on a 1x2 and a 2x1 mesh; the gathered frames against the
    single-process K1 frame (2x1 bit for bit, 1x2 within 1e-6 relative).
+47. The viewer headless on the card (``view.py::TerminalViewer`` on
+   ``Renderer(1024, 1024)``): a key script (orbit, dolly, the Fresnel
+   slider, FXAA, the depth view, an SGR left-button drag with a wheel
+   report) through ``step``, then ``run(max_passes=8, interactive=False)``
+   inside ``utils.profiling.profiler_trace`` (its trace written into the
+   work directory): K1 once a pass by its launch count and by the
+   profiler, no plain version; the camera and sliders after the script
+   equal the CPU viewer's (yaw, pitch and sliders bit for bit, the origin
+   within 1e-6 relative); at 64x32 the card viewer's frame before FXAA
+   against the CPU viewer's within phase 3's limits (the FXAA frames'
+   difference printed); ``measure_renderer``'s ms/pass.
+48. The examples (``vrenderer_pathtracer_tpu_torch/examples/``) at their
+   default widths with fewer steps: ``inverse_rendering`` (256^2, 4 spp,
+   10 Adam steps: K2 once a step, K1 for the target and the converged
+   renders), ``envmap_recovery`` (256^2, 10 steps: K4's records and
+   ``compose`` once a step), ``config5`` (960x540, 16 spp on phase 27's
+   assets: K5 each bounce of each pass and of the gradient's pass, no
+   plain search), ``bench_paged`` (its defaults, 3 iterations: K5 four
+   times a regime); their ms/step, ms/pass and Mrays/s.
+49. ``bench_scaling``: ``--real`` at world size 1 over NCCL (strong and
+   weak, render and train: K1 and K2 once a step), then a sweep over one
+   and two gloo ranks sharing the card, which its summary labels a
+   harness check.
 
 The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
 one JSON object, every row with its per-pipe and issue bounds, and then
@@ -2207,15 +2230,15 @@ def k4_phases(dev, card, work_dir, nm_obj):
 
 
 # The config-5 path (phases 27-36): BASELINE config 5 as bench.py:249-288
-# and examples/config5.py run it, with its assets made as
-# examples/config5.py::synth_assets makes them (the sky as an array): the
+# and examples/config5.py run it, with its assets made by the port's
+# examples/config5.py::synth_assets (the sky as an array): the
 # ~499k-triangle UV sphere (paged: K5 as the mesh search, compact bounce
 # waves), the 128x256 gradient sky, a Lambertian MERL table written as a
 # .binary and read by load_brdf(path), FXAA, remat; 1920x1080, 2 spp, 4
 # bounces, the default camera.  No cut.
 C5_SIZE = (1920, 1080)
 C5_SMALL = (480, 270)
-C5_SPHERE = (12.0, 500, 500)    # 499,000 triangles
+C5_THETA = 500                  # the sphere's rings: 499,000 triangles
 C5_CPU_SPHERE = (12.0, 40, 40)  # 3,120 triangles, paged at 512 a page
 C5_WARM, C5_PASSES = 2, 5
 K5_SAMPLE = 65536               # rays sampled from each spec wave
@@ -2240,22 +2263,16 @@ BF16X2_RATE = 2 * RATES["fp32"]
 
 
 def config5_assets(work_dir):
-    """examples/config5.py::synth_assets: (obj path, sky [128,256,3] array,
-    MERL .binary path)."""
-    from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE
-    from vrenderer_pathtracer_tpu_torch.utils.uv_sphere import write_uv_sphere
+    """The port's ``examples/config5.py::synth_assets``, written into
+    ``work_dir/c5``: (obj path, its ``sky_image()`` [128,256,3] as an
+    array, MERL .binary path).  The EXR beside them holds the same sky in
+    half floats; phase 48 reads it."""
+    from vrenderer_pathtracer_tpu_torch.examples import config5
 
-    obj = str(work_dir / "c5_sphere.obj")
-    write_uv_sphere(obj, *C5_SPHERE)
-    h, w = 128, 256
-    v = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
-    img = np.concatenate(
-        [1.2 * (1 - v), 0.7 * np.ones((h, 1, 1), np.float32), 1.2 * v], axis=2)
-    sky = np.broadcast_to(img, (h, w, 3)).copy()
-    brdf = str(work_dir / "c5_lambert.binary")
-    scales = np.array([1.0, 1.15, 1.66]) / 1500.0
-    write_merl(brdf, (0.05 / scales)[:, None] * np.ones((3, TABLE_SIZE)))
-    return obj, sky, brdf
+    out = work_dir / "c5"
+    out.mkdir(parents=True, exist_ok=True)
+    obj, _, brdf = config5.synth_assets(str(out), C5_THETA)
+    return obj, config5.sky_image(), brdf
 
 
 def config5_renderer(width, height, device, sky, brdf, mesh):
@@ -2338,23 +2355,16 @@ def sample_rays(wave, n, seed):
 
 
 def config5_grads(scene, settings, camera, target, fc, fp):
-    """Loss and gradients with respect to the MERL table and the HDRI of
-    one wavefront pass (examples/config5.py's gradient), with wall seconds
-    and peak device bytes."""
-    from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
-    from vrenderer_pathtracer_tpu_torch.render import integrator
+    """``examples/config5.py::env_material_grads`` (loss, MERL and HDRI
+    gradients of one wavefront pass) with wall seconds and peak device
+    bytes."""
+    from vrenderer_pathtracer_tpu_torch.examples.config5 import env_material_grads
 
-    brdf = scene.brdf.clone().requires_grad_()
-    hdr = scene.hdr.clone().requires_grad_()
-    s2 = scene.replace(brdf=brdf, hdr=hdr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
-    ids = pixel_ids(settings.width, settings.height, ray_o.device)
-    rgb, _ = integrator.render_pass(s2, settings, ray_o, ray_d, ids, 1, fc, fp)
-    loss = torch.mean((rgb - target) ** 2)
-    g_brdf, g_hdr = torch.autograd.grad(loss, (brdf, hdr))
+    loss, g_brdf, g_hdr = env_material_grads(scene, settings, camera, target,
+                                             fc, fp)
     torch.cuda.synchronize()
     return (loss.item(), g_brdf, g_hdr, time.perf_counter() - t0,
             torch.cuda.max_memory_allocated())
@@ -3508,6 +3518,211 @@ def shard_phases(dev, card, libs, work_dir):
     return out
 
 
+# Phase 47's key script, one batch of keys a viewer pass: orbit, dolly,
+# the Fresnel slider, FXAA, the depth view, and an SGR left-button drag
+# (press, motion +3 columns +2 rows, a wheel report, release).
+VIEW_SCRIPT = (("right",), ("up", "w"), ("]", "f"), ("enter",),
+               ("0;10;5M", "32;13;7M", "64;13;7M", "0;13;7m"), ("enter",))
+VIEW_PASSES = 8          # the headless run after the script
+VIEW_SMALL = (64, 32)    # the card viewer against the CPU viewer
+EXAMPLE_STEPS = 10       # inverse_rendering's and envmap_recovery's steps
+
+
+def view_script_keys(viewer):
+    """VIEW_SCRIPT with its SGR reports decoded by the viewer."""
+    return [[viewer._parse_sgr_mouse(k) if k[-1] in "Mm" and ";" in k else k
+             for k in batch] for batch in VIEW_SCRIPT]
+
+
+def drive_viewer(r, passes=VIEW_PASSES):
+    """The key script through ``TerminalViewer.step``, a pass a batch, then
+    ``run(max_passes=passes, interactive=False)``: the viewer."""
+    import io
+
+    from vrenderer_pathtracer_tpu_torch.view import TerminalViewer
+
+    v = TerminalViewer(r, out=io.StringIO(), max_cols=48, max_rows=16)
+    for keys in view_script_keys(v):
+        v.step(keys)
+    v.run(max_passes=passes, interactive=False)
+    return v
+
+
+def viewer_state(v):
+    r = v.r
+    return {"yaw": r.camera.yaw.item(), "pitch": r.camera.pitch.item(),
+            "origin": r.camera.origin.tolist(),
+            "fresnel_coef": r.fresnel_coef.item(),
+            "fresnel_pow": r.fresnel_pow.item(), "fxaa": r.settings.use_fxaa,
+            "show_depth": v.show_depth, "frame": r.frame, "passes": v._passes}
+
+
+def app_phases(dev, card, work_dir):
+    """Phases 47-49: the viewer, the four examples and the scaling harness
+    on the card, through the entry points a user calls."""
+    from vrenderer_pathtracer_tpu_torch import Renderer, RenderSettings, bench_scaling
+    from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
+    from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
+    from vrenderer_pathtracer_tpu_torch.examples import (
+        bench_paged, config5, envmap_recovery, inverse_rendering)
+    from vrenderer_pathtracer_tpu_torch.ops.tonemap import tonemap
+    from vrenderer_pathtracer_tpu_torch.render import cuda_grad as k2
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+    from vrenderer_pathtracer_tpu_torch.render import cuda_radiance as k1
+    from vrenderer_pathtracer_tpu_torch.render import integrator
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import (
+        measure_renderer, profiler_trace)
+
+    base = RenderSettings(use_cornell_box=True, has_hdr=False)
+
+    # 47. The viewer headless on the card at 1024^2: K1 once a pass (launch
+    # count and profiler), no plain version; the camera and sliders after
+    # the script against the CPU viewer's; the card's frame against the
+    # CPU's at 64x32 within phase 3's limits; measure_renderer.
+    def no_plain(*_a, **_k):
+        raise AssertionError("a plain version ran on the viewer's path")
+
+    plain = (k1.render_pass_reference, integrator.render_pass)
+    k1.render_pass_reference = integrator.render_pass = no_plain
+    try:
+        r = Renderer(WIDTH, HEIGHT, settings=base)
+        k1.launch.count = 0
+        trace_dir = work_dir / "viewer_trace"
+        t0 = time.perf_counter()
+        with profiler_trace(trace_dir) as prof:
+            v = drive_viewer(r)
+        wall = time.perf_counter() - t0
+        launches = k1.launch.count
+        traced = sum(e.count for e in prof.key_averages()
+                     if "radiance_kernel" in e.key)
+        small_card = drive_viewer(Renderer(*VIEW_SMALL, settings=base))
+    finally:
+        k1.render_pass_reference, integrator.render_pass = plain
+    small_cpu = drive_viewer(Renderer(*VIEW_SMALL, settings=base, device="cpu"))
+    passes = v._passes
+    assert passes == len(VIEW_SCRIPT) + VIEW_PASSES and launches == passes, \
+        (passes, launches)
+    assert traced == passes, f"the profiler shows K1 {traced} times"
+    want = viewer_state(small_cpu)
+    for got in (viewer_state(v), viewer_state(small_card)):
+        for key in ("yaw", "pitch", "fresnel_coef", "fresnel_pow", "fxaa",
+                    "show_depth", "frame", "passes"):
+            assert got[key] == want[key], (key, got[key], want[key])
+        assert np.allclose(got["origin"], want["origin"], rtol=1e-6, atol=0)
+    origin_bitwise = viewer_state(v)["origin"] == want["origin"]
+    # The frames before FXAA, held to phase 3's limits; FXAA's edge tests
+    # turn a rounding difference of its input into a discrete change over
+    # a 3x3 neighbourhood, so its frames are only reported.
+    shown = [x.r.current_frame()[0].cpu().numpy() for x in (small_card, small_cpu)]
+    raw = [tonemap(x.r.accumulation(), x.r.frame - 1,
+                   x.r.settings.gamma).cpu().numpy() for x in (small_card, small_cpu)]
+    img_err = np.abs(raw[0] - raw[1])
+    fxaa_err = np.abs(shown[0] - shown[1])
+    print(f"  viewer 64x32 card vs CPU: before FXAA "
+          f"{(img_err > 1e-3).any(axis=-1).mean():.4%} pixels off by >1e-3, "
+          f"mean {img_err.mean():.3g}; shown (FXAA) "
+          f"{(fxaa_err > 1e-3).any(axis=-1).mean():.4%}, mean "
+          f"{fxaa_err.mean():.3g}")
+    assert (img_err > 1e-3).any(axis=-1).mean() <= 0.02
+    assert img_err.mean() <= 2e-3
+    assert "spp" in v.out.getvalue() and "\u2580" in v.out.getvalue()
+    traces = sorted(trace_dir.glob("trace_*.json"))
+    assert traces, "profiler_trace wrote no trace"
+    stats = measure_renderer(r, warmup=1, iters=10)
+    r.toggle_fxaa(False)
+    plain_stats = measure_renderer(r, warmup=1, iters=10)
+    r.toggle_fxaa(True)
+    device_profile("viewer pass (FXAA)", r.render, 10)
+    print(f"viewer, {WIDTH}x{HEIGHT}: {passes} passes ({len(VIEW_SCRIPT)} "
+          f"under the key script, {VIEW_PASSES} headless) in {wall:.2f} s "
+          f"profiled, K1 launches {launches} (profiler {traced}), no plain "
+          f"version; camera and sliders after the script equal the CPU "
+          f"viewer's (yaw {want['yaw']!r}, pitch {want['pitch']!r}, origin "
+          f"{'bit for bit' if origin_bitwise else 'within 1e-6 relative'}); "
+          f"last HUD ms/pass "
+          f"{v._last_ms:.3f}; measure_renderer {stats.ms_per_pass:.4f} ms/pass,"
+          f" {stats.mrays_per_s:.1f} Mrays/s with FXAA, "
+          f"{plain_stats.ms_per_pass:.4f} ms/pass without; "
+          f"trace {traces[-1].name} ({traces[-1].stat().st_size} B), {card}")
+
+    # 48. The four examples at their default widths, fewer steps.
+    ex_dir = work_dir / "examples"
+    ex_dir.mkdir(parents=True, exist_ok=True)
+    k1.launch.count = k2.launch.count = 0
+    ir = inverse_rendering.main([
+        "--steps", str(EXAMPLE_STEPS), "--out", str(ex_dir / "ir.png"),
+        "--metrics", str(ex_dir / "ir.jsonl")])
+    assert k2.launch.count == EXAMPLE_STEPS, k2.launch.count
+    assert k1.launch.count == 4 * inverse_rendering.N_TARGET, k1.launch.count
+    assert all(math.isfinite(x) for _, x in ir["losses"])
+    assert (ex_dir / "ir.png").is_file()
+    assert (ex_dir / "ir.jsonl").read_text().count("train_step") >= 1
+    print(f"inverse_rendering 256^2, 4 spp, {EXAMPLE_STEPS} steps: "
+          f"{ir['ms_per_step']:.3f} ms/step wall (after the first step "
+          f"{ir['ms_per_step_after_first']:.3f}), K2 launches "
+          f"{k2.launch.count}, loss {ir['losses'][0][1]:.5g} -> "
+          f"{ir['losses'][-1][1]:.5g}; converged MSE recovered "
+          f"{ir['rec_mse']:.5g} vs true {ir['true_mse']:.5g}, {card}")
+
+    k4.launch_k4.count = k4.compose.count = 0
+    em = envmap_recovery.main(["--steps", str(EXAMPLE_STEPS),
+                               "--out", str(ex_dir / "env.png")])
+    assert em["backend"] == "cuda_mesh", em["backend"]
+    assert k4.launch_k4.count == k4.compose.count == EXAMPLE_STEPS, \
+        (k4.launch_k4.count, k4.compose.count)
+    assert math.isfinite(em["loss"]) and em["sun_err"] < em["sun_err_init"]
+    print(f"envmap_recovery 256^2, {EXAMPLE_STEPS} steps: "
+          f"{em['ms_per_step']:.3f} ms/step wall (after the first step "
+          f"{em['ms_per_step_after_first']:.3f}), K4 (records) launches "
+          f"{k4.launch_k4.count}, compose {k4.compose.count}; sun-disc |err| "
+          f"{em['sun_err']:.3f} (init {em['sun_err_init']:.3f}), {card}")
+
+    c5 = work_dir / "c5"
+    k5.launch_k5.count = 0
+    trav.traverse.count = trav.traverse_paged_reference.count = 0
+    cf = config5.main(["--mesh", str(c5 / "mesh.obj"), "--hdr",
+                       str(c5 / "sky.exr"), "--brdf", str(c5 / "lambert.binary"),
+                       "--out", str(ex_dir / "config5.png")])
+    bounces = 4
+    assert cf["traversal"] == "cuda_paged" and cf["passes"] == 8
+    assert k5.launch_k5.count >= bounces * (cf["passes"] + 1), k5.launch_k5.count
+    assert trav.traverse.count == trav.traverse_paged_reference.count == 0
+    assert cf["g_brdf_abs"] > 0 and cf["g_hdr_abs"] > 0
+    print(f"config5 960x540, 16 spp: set-up {cf['load_s']:.2f} s, "
+          f"{cf['ms_per_pass']:.3f} ms/pass wall over {cf['passes']} passes, "
+          f"gradient {cf['grad_s'] * 1e3:.1f} ms (loss {cf['loss']:.5g}), K5 "
+          f"launches {k5.launch_k5.count}, plain searches 0, {card}")
+
+    k5.launch_k5.count = 0
+    bp = bench_paged.main(["--iters", "3"])
+    assert k5.launch_k5.count == 3 * 4, k5.launch_k5.count
+    print("bench_paged, " + ", ".join(
+        f"{c} {bp[c]['mrays_per_s']:.1f} Mrays/s ({bp[c]['ms']:.3f} ms, hit "
+        f"{bp[c]['hitrate']:.3f})"
+        for c in ("coherent", "shuffled", "shuffled_sorted"))
+        + f", {bp['mesh']['tris']} triangles in {bp['mesh']['pages']} pages, "
+        f"{card}")
+
+    # 49. bench_scaling: world size 1 over NCCL (strong and weak, render and
+    # train: K1 and K2), then two gloo ranks on the card, a harness check.
+    k1.launch.count = k2.launch.count = 0
+    iters = 6
+    real = bench_scaling.main(["--real", "--iters", str(iters)])
+    assert k1.launch.count == k2.launch.count == 2 * (iters + 1), \
+        (k1.launch.count, k2.launch.count)
+    assert not real["virtual_cpu_sweep"] and real["caveat"] is None
+    gloo = bench_scaling.main(["--device", "cuda", "--counts", "1,2",
+                               "--iters", "3"])
+    assert gloo["harness_check"] and gloo["caveat"]
+    for name, summary in (("NCCL world size 1", real),
+                          ("gloo, two ranks on one card (harness check)", gloo)):
+        print(f"bench_scaling, {name}: " + "; ".join(
+            f"{k} " + ", ".join(f"n={r['n_devices']} {r['pass_ms']:.3f} ms "
+                                f"{r['mrays_per_s']:.1f} Mrays/s "
+                                f"{r['efficiency_pct']:.1f}%" for r in rows)
+            for k, rows in summary["tables"].items()) + f", {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3807,6 +4022,7 @@ def main() -> int:
     k3c_row = capture_phases(dev, card, str(work_dir / "nm_sphere.obj"))
     config3_cli_phase(dev, card)
     shards = shard_phases(dev, card, libs, work_dir)
+    app_phases(dev, card, work_dir)
     k4_row["shards"] = shards["k4"]
     k4_row["train_params_hdr_grad"] = shards["train_hdr"]
 

@@ -57,3 +57,37 @@ def test_rays_differentiable_wrt_camera():
     _, d = generate_rays(cam.replace(yaw=yaw), 8, 8)
     d[:, 0].sum().backward()
     assert yaw.grad is not None and torch.isfinite(yaw.grad) and yaw.grad != 0
+
+
+# Key scripts of orbit (dx, dy pixels) and dolly (amount) steps; the last
+# two drive the pitch past +-pi/2, where the clamp holds it.
+SCRIPTS = [
+    [("orbit", 40.0, 0.0), ("orbit", 0.0, 40.0), ("forward", 6.0)],
+    [("orbit", -24.0, 32.0), ("forward", -6.0), ("orbit", 1234.5, -7.0),
+     ("forward", 48.0)],
+    [("orbit", 0.0, 600.0), ("orbit", 0.0, 600.0), ("forward", 6.0),
+     ("orbit", 3.0, -40.0)],
+    [("orbit", 5.0, -2000.0), ("forward", -12.5)],
+]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_orbit_and_move_forward_match_jax_bit_for_bit(script):
+    j, t = JCamera.default(), Camera.default("cpu")
+    for op, *a in script:
+        j = j.orbit(*a) if op == "orbit" else j.move_forward(*a)
+        t = t.orbit(*a) if op == "orbit" else t.move_forward(*a)
+        for name in ("yaw", "pitch", "origin"):
+            got, want = getattr(t, name).numpy(), np.asarray(getattr(j, name))
+            assert got.dtype == want.dtype == np.float32
+            assert got.tobytes() == want.tobytes(), (op, a, name, got, want)
+    assert abs(float(t.pitch)) <= np.float32(np.pi / 2)
+    assert t.DRAG_RAD_PER_PX == JCamera.DRAG_RAD_PER_PX
+
+
+def test_pitch_clamps_at_half_pi():
+    up = Camera.default("cpu").orbit(0.0, 1e4)
+    down = Camera.default("cpu").orbit(0.0, -1e4)
+    assert up.pitch.item() == np.float32(np.pi / 2)
+    assert down.pitch.item() == -np.float32(np.pi / 2)
+    assert up.pitch.dtype == torch.float32 and up.pitch.device == up.device

@@ -8,9 +8,9 @@ PIZ-compressed EXR HDRI.  Both CLIs render it to ``--out``, ``--out-exr``,
 contract of tests/test_config3_textured_mesh.py (at most 2% of pixels with
 a max-channel error above 1e-3, mean at most 1e-4 over the rest).  A
 render stopped at half its samples and resumed from ``--checkpoint-dir``
-writes the uninterrupted render's files byte for byte.  The flags and
-subcommands that are not ported raise, and without ``--cpu`` the command
-needs a card.
+writes the uninterrupted render's files byte for byte.  Flags that do not
+fit the run raise, ``bench`` (not ported) raises, and without ``--cpu``
+``render`` and ``view`` need a card.
 """
 
 import json
@@ -103,8 +103,8 @@ def test_resume_from_checkpoint_dir_is_bitwise(assets, tmp_path):
     # One process: shard counts other than 1 x 1 do not fit its world.
     (["render", "--cpu", "--tiles", "2"], ValueError, "world size is 1"),
     (["render", "--cpu", "--sample-shards", "2"], ValueError, "world size is 1"),
-    (["view", "--cpu", "--headless"], NotImplementedError,
-     "ROADMAP Queue 1 item 14"),
+    (["view", "--cpu", "--headless", "--tiles", "2"], ValueError,
+     "world size is 1"),
     (["bench"], NotImplementedError, "ROADMAP Queue 1 item 7"),
 ])
 def test_unported_flags_and_commands_raise(argv, error, match, monkeypatch):
@@ -120,6 +120,14 @@ def test_render_without_cpu_needs_a_card(monkeypatch):
         cli.main(["render", "--width", "4", "--height", "4", "--quiet"])
 
 
+def test_view_without_cpu_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["view", "--width", "4", "--height", "4", "--headless",
+                  "--passes", "1"])
+
+
 def test_python_dash_m_runs_the_cli(assets, tmp_path, monkeypatch):
     _, args = assets
     out = tmp_path / "m.png"
@@ -131,9 +139,9 @@ def test_python_dash_m_runs_the_cli(assets, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["render", "--cpu", "--no-such-flag"],
-                                  ["bench", "--no-such-flag"]])
+                                  ["bench", "--no-such-flag"],
+                                  ["view", "--cpu", "--no-such-flag"]])
 def test_unknown_flags_are_refused(argv):
-    """Only ``view`` takes flags it does not read (it refuses whatever it is
-    given); the other commands reject an unknown flag."""
+    """Every command rejects an unknown flag."""
     with pytest.raises(SystemExit):
         cli.main(argv)

@@ -14,9 +14,11 @@ bounce waves, ray sorting, bounce remat and FXAA; the Cornell training step (``p
 ``csrc/grad.cu``); and the deferred-table step ``deferred_opt_step`` (HDRI,
 diffuse map and MERL table, by autograd through the fused kernel's
 epilogue).  Assets load from files (OBJ, PLY, FBX, EXR, images: ``io/``),
-progressive renders checkpoint and resume (``render/progressive.py``), and
+progressive renders checkpoint and resume (``render/progressive.py``),
 ``python -m vrenderer_pathtracer_tpu_torch render`` is the command line
-(``cli.py``).  Entry points run on the card unless the caller
+(``cli.py``) and ``... view`` the terminal viewer (``view.py``); the
+example scripts are ``examples/`` and the scaling harness
+``bench_scaling.py``.  Entry points run on the card unless the caller
 passes ``device="cpu"``; on the CPU the same API runs the plain PyTorch
 integrator and autograd.  The package never imports jax.
 """

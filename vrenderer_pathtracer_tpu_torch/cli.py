@@ -19,9 +19,15 @@ gloo with ``--cpu``), e.g. two tiles on the CPU:
         --cpu --tiles 2 --cornell --out cornell.png
 
 Every rank renders its tile and holds the gathered frame; rank 0 writes
-the files, the metrics log and the checkpoints.  Not ported yet, each
-raising ``NotImplementedError``: ``view`` (the terminal viewer) and
-``bench``.
+the files, the metrics log and the checkpoints.
+
+``view`` is the live terminal viewer (``view.py``) on a renderer built
+from the same flags, plus ``--cols``, ``--rows``, ``--passes`` and
+``--headless``:
+
+    python -m vrenderer_pathtracer_tpu_torch view --cornell
+
+Not ported yet: ``bench``, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,6 @@ import os
 import sys
 import time
 
-VIEW_ITEM = "ROADMAP Queue 1 item 14 (view.py, the terminal viewer)"
 BENCH_ITEM = "ROADMAP Queue 1 item 7 (the port's bench)"
 
 
@@ -222,8 +227,14 @@ def cmd_render(args) -> int:
 
 
 def cmd_view(args) -> int:
-    del args
-    raise NotImplementedError(f"view is not ported yet: {VIEW_ITEM}")
+    """Live progressive viewer, on the card unless ``--cpu``."""
+    from vrenderer_pathtracer_tpu_torch.view import TerminalViewer
+
+    r = _build_renderer(args)
+    viewer = TerminalViewer(r, max_cols=args.cols, max_rows=args.rows)
+    viewer.run(max_passes=args.passes or None,
+               interactive=False if args.headless else None)
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -240,14 +251,20 @@ def main(argv=None) -> int:
     pr = sub.add_parser("render", help="render a scene to PNG/EXR")
     _add_render_args(pr)
     pr.set_defaults(fn=cmd_render)
-    # view takes the JAX CLI's flags unread: it refuses whatever it is given.
-    sub.add_parser("view", help="live terminal viewer (not ported yet)"
-                   ).set_defaults(fn=cmd_view)
+    pv = sub.add_parser(
+        "view", help="live terminal viewer (arrows orbit, w/s dolly, "
+        "enter toggles depth, q quits)")
+    _add_render_args(pv)
+    pv.add_argument("--cols", type=int, default=0, help="max display columns")
+    pv.add_argument("--rows", type=int, default=0, help="max display rows")
+    pv.add_argument("--passes", type=int, default=0,
+                    help="stop after N passes (0 = until quit)")
+    pv.add_argument("--headless", action="store_true",
+                    help="no key input (for scripts/tests)")
+    pv.set_defaults(fn=cmd_view)
     pb = sub.add_parser("bench", help="the headline benchmark (not ported yet)")
     pb.set_defaults(fn=cmd_bench)
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.fn is not cmd_view:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = parser.parse_args(argv)
     return args.fn(args)
 
 

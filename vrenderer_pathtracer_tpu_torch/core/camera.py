@@ -11,7 +11,9 @@ Port of ``vrenderer_pathtracer_tpu/core/camera.py``:
   quarter-pixel offset, no jitter.
 
 Every leaf is a float32 tensor, so autograd reaches ``origin``/``yaw``/
-``pitch``/``fov_deg`` from the pixels.
+``pitch``/``fov_deg`` from the pixels.  ``orbit`` and ``move_forward`` are
+the reference's mouse controls as pure updates (the viewer's keys and
+drags).
 """
 
 from __future__ import annotations
@@ -22,8 +24,22 @@ import math
 import torch
 
 
+def _sincos(angle: torch.Tensor):
+    """float32 sin and cos of ``angle``, computed in float64 and rounded
+    once: the correctly rounded values, which XLA's float32 sin and cos
+    give on all but ~1.3% of inputs and torch's on only ~95% of them."""
+    a = angle.double()
+    return torch.sin(a).float(), torch.cos(a).float()
+
+
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+
+def _forward(sy, cy, sp, cp) -> torch.Tensor:
+    """The unit forward vector from the sines and cosines of yaw and pitch
+    (the view direction is its negation)."""
+    return _normalize(torch.stack([sy * cp, sp, cy * cp]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +71,8 @@ class Camera:
 
     def basis(self):
         """Return ``(origin, view_dir, up, right, fov_scale)``."""
-        sy, cy = torch.sin(self.yaw), torch.cos(self.yaw)
-        sp, cp = torch.sin(self.pitch), torch.cos(self.pitch)
-        forward = _normalize(torch.stack([sy * cp, sp, cy * cp]))
+        forward = _forward(torch.sin(self.yaw), torch.cos(self.yaw),
+                           torch.sin(self.pitch), torch.cos(self.pitch))
         bent = forward + torch.tensor([0.0, 1.0, 0.0], dtype=forward.dtype,
                                       device=forward.device)
         right = _normalize(torch.linalg.cross(bent, forward))
@@ -69,6 +84,33 @@ class Camera:
         """Clamp |pitch| to pi/2, as the reference does."""
         half_pi = math.pi / 2
         return self.replace(pitch=torch.clamp(self.pitch, -half_pi, half_pi))
+
+    # -- interaction (the reference's mouse controls, as pure updates) ------
+
+    # LMB drag sensitivity: radians per pixel.
+    DRAG_RAD_PER_PX = 0.00174532925
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def orbit(self, dx_px, dy_px) -> "Camera":
+        """LMB drag: dx -> yaw, dy -> pitch, then the pitch clamp.  The step
+        is a float32 constant times a float32 delta, as in the JAX package,
+        so a key script gives its yaw and pitch bit for bit."""
+        s = self._f32(self.DRAG_RAD_PER_PX)
+        return self.replace(
+            yaw=self.yaw + s * self._f32(dx_px),
+            pitch=self.pitch + s * self._f32(dy_px),
+        ).with_pitch_clamped()
+
+    def move_forward(self, amount) -> "Camera":
+        """RMB drag: translate along the view direction.  Its sines and
+        cosines are rounded once from float64 (``_sincos``), so that a key
+        script moves the camera as the JAX package does, bit for bit;
+        ``basis``, which every render pass and train step packs, keeps the
+        float32 ones and their fewer device operations."""
+        view_dir = -_forward(*_sincos(self.yaw), *_sincos(self.pitch))
+        return self.replace(origin=self.origin + view_dir * self._f32(amount))
 
 
 def generate_rays(camera: Camera, width: int, height: int):

@@ -75,3 +75,10 @@ def build_sphere_set(use_cornell_box: bool, device) -> SphereSet:
     """Analytic spheres in the reference's order: Cornell shells first."""
     rows = (_CORNELL if use_cornell_box else []) + _MIRROR_AND_FRESNEL
     return _soa(rows, device)
+
+
+def example_sphere(device) -> SphereSet:
+    """The example sphere as a one-row set: white diffuse, r = 10 at the
+    origin."""
+    return _soa([(EXAMPLE_SPHERE_RADIUS, EXAMPLE_SPHERE_POS, (0, 0, 0),
+                  (1, 1, 1), DIFF, (0, 0, 0))], device)

@@ -1,14 +1,21 @@
 """Timing and throughput bookkeeping (port of ``utils/profiling.py``).
 
 Rays are counted as pixels x spp x bounces per pass.  Wall time is taken on
-the host clock around work that ends in ``torch.cuda.synchronize``; device
-time comes from CUDA events.  Neither is a device number when the work ran
-on the CPU, and :func:`cuda_time_ms` refuses CPU work.
+the host clock around work that ends in ``torch.cuda.synchronize``
+(:func:`timeit`, :func:`measure_renderer`); device time comes from CUDA
+events (:func:`cuda_time_ms`); :func:`profiler_trace` writes a
+``torch.profiler`` timeline for Perfetto or ``chrome://tracing``.  None of
+them is a device number when the work ran on the CPU, and
+:func:`cuda_time_ms` refuses CPU work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import pathlib
+import time
 from typing import Callable
 
 import torch
@@ -19,6 +26,40 @@ def synchronize(device) -> None:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _first_device(tree):
+    """The device of the first tensor in ``tree`` (nested tuples, lists,
+    dicts), or None."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    items = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (tuple, list)) else ())
+    for x in items:
+        device = _first_device(x)
+        if device is not None:
+            return device
+    return None
+
+
+def _wait(out) -> None:
+    device = _first_device(out)
+    if device is not None:
+        synchronize(device)
+
+
+def timeit(fn: Callable, *args, warmup: int = 1, iters: int = 5, **kw) -> float:
+    """Mean host seconds per call of ``fn(*args, **kw)`` over ``iters``
+    calls after ``warmup``, each run ending in a synchronize on the device
+    of the outputs' first tensor."""
+    for _ in range(warmup):
+        _wait(fn(*args, **kw))
+    t0 = time.perf_counter()
+    out = None
+    for _ in range(iters):
+        out = fn(*args, **kw)
+    _wait(out)
+    return (time.perf_counter() - t0) / iters
 
 
 @dataclasses.dataclass
@@ -73,3 +114,40 @@ def cuda_time_ms(fn: Callable[[], object], device, iters: int = 10,
         end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir):
+    """``torch.profiler`` over the block (CPU activity, and CUDA activity
+    where there is a card); on exit the timeline is written into
+    ``log_dir`` as a Chrome/Perfetto JSON trace, ``trace_<pid>_<ns>.json``.
+    Yields the profiler, whose ``key_averages()`` the caller may read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def measure_renderer(renderer, warmup: int = 1, iters: int = 5) -> RenderStats:
+    """Time progressive passes of a Renderer on the host clock, each run
+    ending in a synchronize on the renderer's device."""
+    for _ in range(warmup):
+        renderer.render()
+    synchronize(renderer.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        renderer.render()
+    synchronize(renderer.device)
+    s = renderer.settings
+    return RenderStats(
+        width=s.width, height=s.height, samples_per_pass=s.samples_per_pass,
+        bounces=s.bounces,
+        seconds_per_pass=(time.perf_counter() - t0) / iters,
+    )
