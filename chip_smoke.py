@@ -268,10 +268,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    weak, render and train: K1 and K2 once a step), then a sweep over one
    and two gloo ranks sharing the card, which its summary labels a
    harness check.
+50. The port's ``bench`` command (``python -m vrenderer_pathtracer_tpu_torch
+   bench --trace DIR``) in a subprocess at its full sizes: its line printed;
+   every key it maps from the repository's ``bench.py`` (``bench.KEYS``)
+   and every ``*_device_ms`` twin present, finite and positive; the
+   profiler's timelines of its twins show K1, K2, K3, K4 and K5 and no
+   plain version's range (``utils/profiling.py::plain_version``); its
+   headline twin (K2's device ms a step) within ``BENCH_TWIN_RTOL`` of
+   phase 9's K2 row.
 
 The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
-one JSON object, every row with its per-pipe and issue bounds, and then
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+one JSON object, every row with its per-pipe and issue bounds and the
+bench keys that drive it (with the kernel's device ms in each of the
+bench's twins), and then ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
 
@@ -279,6 +288,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -289,6 +299,20 @@ import torch
 WIDTH = HEIGHT = 1024
 PASSES = 10
 STEPS = 12
+# Phase 50: the bench command's time limit, and how far its headline twin
+# (K2's device ms a step, from the profiler, frames 42-49 against a black
+# target) may sit from phase 9's K2 row (CUDA events, frame 1).
+BENCH_TIMEOUT_S = 600
+BENCH_TWIN_RTOL = 0.10
+# The bench keys (wall times, as bench.TWINS names them) that drive each
+# kernel of the kernels line; K3b, K3c and K6 run in no measurement.
+BENCH_KEYS_OF = {
+    "K1": ("fwd_ms", "megakernel_pass_ms"),
+    "K2": ("fwdbwd_k2_ms", "fwdbwd_step_ms"),
+    "K3": ("mesh_traversal_ms", "nm_wavefront_pass_ms"),
+    "K4": ("mesh_megakernel_pass_ms",),
+    "K5": ("paged_traversal_ms", "c5_spec_pass_ms"),
+}
 # Parity contract of K1 against its plain version (two differently
 # compiled programs flip discrete branches on grazing rays): fewer than 1%
 # of rgb elements off by more than 1e-5, and depth within 1e-3.  At the full
@@ -3723,6 +3747,83 @@ def app_phases(dev, card, work_dir):
             for k, rows in summary["tables"].items()) + f", {card}")
 
 
+def bench_phase(card, work_dir, k2_ms):
+    """Phase 50: the bench command on the card; returns its ``extra``."""
+    import shutil
+
+    from vrenderer_pathtracer_tpu_torch import bench
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import PLAIN_VERSION
+
+    trace_dir = work_dir / "bench_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.empty_cache()  # the subprocess needs the card's memory
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vrenderer_pathtracer_tpu_torch", "bench",
+         "--trace", str(trace_dir)], capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
+        raise AssertionError(f"bench exited {proc.returncode}")
+    print(proc.stderr.strip()[-2000:])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(line))
+    extra = line["extra"]
+    assert line["metric"] == bench.METRIC and line["unit"] == "Mrays/s"
+    assert line["vs_baseline"] == 1.0 and extra["platform"] == "gpu"
+    assert extra["n_devices"] == 1 and f"{extra['card']}, {extra['power_limit']}" == card
+    record_keys = ("metric", "value", "unit", "vs_baseline", "extra")
+    keys = ["value"] + [bench.KEYS[k] for k in bench.KEYS if k not in record_keys]
+    keys += [k for pair in bench.TWINS.items() for k in pair]
+    for key in keys:
+        value = line[key] if key == "value" else extra[key]
+        if isinstance(value, str):
+            assert value, key
+            continue
+        for x in value if isinstance(value, list) else [value]:
+            assert isinstance(x, (int, float)) and math.isfinite(x) and x > 0, \
+                (key, value)
+    # The profiler's timelines of the twins: the kernels the card ran, and
+    # no plain version's range.
+    kernels, plain = set(), set()
+    traces = sorted(trace_dir.glob("*.json"))
+    for path in traces:
+        for e in json.loads(path.read_text())["traceEvents"]:
+            name = e.get("name", "")
+            if e.get("cat") == "kernel":
+                kernels.add(name)
+            elif name.startswith(PLAIN_VERSION):
+                plain.add(name)
+    seen = bench.kernel_ms(dict.fromkeys(kernels, 1.0))
+    assert {"K1", "K2", "K3", "K4", "K5"} <= set(seen), sorted(seen)
+    assert not plain, f"plain versions ran on the card: {sorted(plain)}"
+    assert all(extra["launches"][k] > 0 for k in ("K1", "K2", "K3", "K4", "K5")), \
+        extra["launches"]
+    twin = extra["fwdbwd_k2_device_ms"]
+    rel = abs(twin - k2_ms) / k2_ms
+    print(f"bench: exit 0 in {wall:.1f} s, headline {line['value']:.1f} "
+          f"Mrays/s (K2 {extra['fwdbwd_k2_ms']:.4f} ms a step wall, "
+          f"{twin:.4f} device; phase 9's K2 row {k2_ms:.4f}, {rel:.2%} apart); "
+          f"{len(keys)} keys present, finite and positive; kernels in "
+          f"{len(traces)} timelines: {sorted(seen)}, no plain version; "
+          f"launches {extra['launches']}, {card}")
+    assert rel <= BENCH_TWIN_RTOL, f"headline twin {twin} vs K2 row {k2_ms}"
+    return extra
+
+
+def with_bench_keys(rows, extra):
+    """The kernel rows with the bench keys that drive each and the kernel's
+    device ms in each of the bench's twins."""
+    twins = extra["kernel_device_ms"]
+    for row in rows:
+        kid = row["name"].split()[0]
+        row["bench_keys"] = list(BENCH_KEYS_OF.get(kid, ()))
+        row["bench_device_ms"] = {w: ms[kid] for w, ms in twins.items()
+                                  if kid in ms}
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4023,10 +4124,11 @@ def main() -> int:
     config3_cli_phase(dev, card)
     shards = shard_phases(dev, card, libs, work_dir)
     app_phases(dev, card, work_dir)
+    bench_extra = bench_phase(card, work_dir, k2_ms)
     k4_row["shards"] = shards["k4"]
     k4_row["train_params_hdr_grad"] = shards["train_hdr"]
 
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "K1 radiance",
         "route": "cuda",
         "source": "vrenderer_pathtracer_tpu_torch/csrc/radiance.cu",
@@ -4068,7 +4170,8 @@ def main() -> int:
         "bound_by": k2_bound[1],
         "bound_issue_ms": k2_bound[2],
         "library_ms": None,
-    }, *mesh_rows, k3c_row, k4_row, *c5_rows]}))
+    }, *mesh_rows, k3c_row, k4_row, *c5_rows]
+    print(json.dumps({"kernels": with_bench_keys(rows, bench_extra)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,8 +9,8 @@ contract of tests/test_config3_textured_mesh.py (at most 2% of pixels with
 a max-channel error above 1e-3, mean at most 1e-4 over the rest).  A
 render stopped at half its samples and resumed from ``--checkpoint-dir``
 writes the uninterrupted render's files byte for byte.  Flags that do not
-fit the run raise, ``bench`` (not ported) raises, and without ``--cpu``
-``render`` and ``view`` need a card.
+fit the run raise, and without ``--cpu`` ``render`` and ``view`` need a
+card, as ``bench`` always does.
 """
 
 import json
@@ -105,7 +105,8 @@ def test_resume_from_checkpoint_dir_is_bitwise(assets, tmp_path):
     (["render", "--cpu", "--sample-shards", "2"], ValueError, "world size is 1"),
     (["view", "--cpu", "--headless", "--tiles", "2"], ValueError,
      "world size is 1"),
-    (["bench"], NotImplementedError, "ROADMAP Queue 1 item 7"),
+    # The bench runs on the card only.
+    (["bench"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_and_commands_raise(argv, error, match, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)

@@ -103,8 +103,8 @@ def test_sync_render_records_stats():
 
 
 @pytest.mark.parametrize("call,error,match", [
-    # The viewer is ported; the bench is not, and names its ROADMAP item.
-    (lambda r: cli.main(["bench"]), NotImplementedError, "ROADMAP"),
+    # The viewer and the bench are ported; the bench runs on the card only.
+    (lambda r: cli.main(["bench"]), RuntimeError, "no CUDA device"),
     # Sharding is ported: a mesh that is not a DeviceMesh, and two tiles in
     # a one-process world, are refused.
     (lambda r: vpt.Renderer(4, 4, device="cpu", device_mesh=object()),

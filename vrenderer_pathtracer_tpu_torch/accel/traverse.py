@@ -30,6 +30,7 @@ from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
 from vrenderer_pathtracer_tpu_torch.scene.scene import MeshData, Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF, DIFF
+from vrenderer_pathtracer_tpu_torch.utils.profiling import plain_version
 
 # Triangle-test epsilon (the reference's own backends use 3e-10 and 3e-4;
 # this sits between).
@@ -96,6 +97,7 @@ def _leaf_intersect(mesh: MeshData, ray_o, ray_d, start, count, active, best_t,
     return torch.where(won, t_min, best_t), torch.where(won, slot_min, best_slot)
 
 
+@plain_version
 @torch.no_grad()
 def traverse(mesh: MeshData, ray_o, ray_d, t_max):
     """Find the nearest triangle hit per ray.
@@ -230,6 +232,7 @@ def _wide_search(boxes, recs, pack, ray_o, ray_d, t_max):
     return best_slot, best_t
 
 
+@plain_version
 @torch.no_grad()
 def traverse_paged_reference(mesh: MeshData, ray_o, ray_d, t_max):
     """The closest hit per ray over a paged mesh, the plain version of K5

@@ -1,4 +1,5 @@
-"""Command-line front end of the port: ``render`` to PNG, EXR and depth PNG.
+"""Command-line front end of the port: ``render`` to PNG, EXR and depth PNG,
+``view``, and ``bench``.
 
 The flags and defaults are the JAX package's ``cli.py``: asset loads
 (``--mesh`` OBJ/PLY/FBX, ``--hdr`` EXR, ``--brdf`` MERL, ``--*-map``
@@ -27,7 +28,13 @@ from the same flags, plus ``--cols``, ``--rows``, ``--passes`` and
 
     python -m vrenderer_pathtracer_tpu_torch view --cornell
 
-Not ported yet: ``bench``, which raises ``NotImplementedError``.
+``bench`` is the headline benchmark (``bench.py``): K1-K5 timed on the card
+at the repository's ``bench.py`` sizes, one JSON line as its last line of
+output.  It runs on the card only (no ``--cpu``); ``--only`` picks
+measurements beside the headline, ``--baseline`` an earlier line to
+compare with, ``--trace`` a directory for the profiler's timelines:
+
+    python -m vrenderer_pathtracer_tpu_torch bench --only mesh,paged
 """
 
 from __future__ import annotations
@@ -36,8 +43,6 @@ import argparse
 import os
 import sys
 import time
-
-BENCH_ITEM = "ROADMAP Queue 1 item 7 (the port's bench)"
 
 
 def _add_render_args(p: argparse.ArgumentParser):
@@ -238,8 +243,11 @@ def cmd_view(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    del args
-    raise NotImplementedError(f"bench is not ported yet: {BENCH_ITEM}")
+    """The headline benchmark on the card; its line is the last printed."""
+    from vrenderer_pathtracer_tpu_torch import bench
+
+    bench.run(args)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -262,7 +270,11 @@ def main(argv=None) -> int:
     pv.add_argument("--headless", action="store_true",
                     help="no key input (for scripts/tests)")
     pv.set_defaults(fn=cmd_view)
-    pb = sub.add_parser("bench", help="the headline benchmark (not ported yet)")
+    pb = sub.add_parser(
+        "bench", help="the headline benchmark on the card (one JSON line)")
+    from vrenderer_pathtracer_tpu_torch.bench import add_arguments
+
+    add_arguments(pb)
     pb.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -73,6 +73,7 @@ from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
     pack_camera, pack_spheres)
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import BRDF
+from vrenderer_pathtracer_tpu_torch.utils.profiling import plain_version
 
 # Planted faults of the kernel (``launch_k4(fault=...)``): each makes K4 a
 # wrong kernel in one way, for checking that the card's contract catches it
@@ -189,6 +190,7 @@ def _intersect(scene, settings, ray_o, ray_d, alive):
     return hd, torch.zeros_like(hd.hit), torch.zeros_like(ray_d[:, :2])
 
 
+@plain_version
 @torch.no_grad()
 def records_reference(scene: Scene, settings: RenderSettings, camera: Camera,
                       frame: int, fresnel_coef, fresnel_pow, seed: int = 0,

@@ -7,7 +7,8 @@ what it computes and what bounds it on the card.  This module:
 * ``supports`` — the kernel's scope (Cornell sphere scenes, no assets);
 * ``pack_camera`` / ``pack_spheres`` — the small tables the kernel reads;
 * ``render_pass_reference`` — the plain PyTorch version of the kernel,
-  ``integrator.render_camera_pass``;
+  ``integrator.render_camera_pass`` (``.count`` counts its calls; the
+  wavefront calls ``render_camera_pass`` itself, not this);
 * ``render_pass_cuda`` — the wrapper.  Tensors on the CPU take the plain
   version; tensors on a CUDA device launch the kernel (built at first use)
   or raise;
@@ -34,6 +35,7 @@ from vrenderer_pathtracer_tpu_torch.core.camera import Camera
 from vrenderer_pathtracer_tpu_torch.render import integrator
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
 from vrenderer_pathtracer_tpu_torch.scene.spheres import SphereSet
+from vrenderer_pathtracer_tpu_torch.utils.profiling import plain_version
 
 # Spheres the kernel stages in shared memory (csrc/common.cuh
 # kSmemSpheres, 14 floats each); a larger table is read from global memory.
@@ -75,8 +77,20 @@ def pack_spheres(spheres: SphereSet) -> torch.Tensor:
     ], dim=1).contiguous()
 
 
-# The plain PyTorch version of K1: ``(rgb_mean [N,3], depth [N])``.
-render_pass_reference = integrator.render_camera_pass
+@plain_version
+def render_pass_reference(scene: Scene, settings: RenderSettings,
+                          camera: Camera, frame, fresnel_coef, fresnel_pow,
+                          seed: int = 0, pixel_offset: int = 0,
+                          sample_offset: int = 0, n_local_pixels=None):
+    """The plain PyTorch version of K1, ``integrator.render_camera_pass``:
+    ``(rgb_mean [n,3], depth [n])``."""
+    render_pass_reference.count += 1
+    return integrator.render_camera_pass(
+        scene, settings, camera, frame, fresnel_coef, fresnel_pow, seed,
+        pixel_offset, sample_offset, n_local_pixels)
+
+
+render_pass_reference.count = 0
 
 
 @functools.lru_cache(maxsize=None)

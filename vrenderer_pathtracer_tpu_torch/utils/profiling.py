@@ -3,16 +3,22 @@
 Rays are counted as pixels x spp x bounces per pass.  Wall time is taken on
 the host clock around work that ends in ``torch.cuda.synchronize``
 (:func:`timeit`, :func:`measure_renderer`); device time comes from CUDA
-events (:func:`cuda_time_ms`); :func:`profiler_trace` writes a
+events (:func:`cuda_time_ms`) or from the profiler's device events
+(:func:`device_ms_per_call`); :func:`profiler_trace` writes a
 ``torch.profiler`` timeline for Perfetto or ``chrome://tracing``.  None of
 them is a device number when the work ran on the CPU, and
-:func:`cuda_time_ms` refuses CPU work.
+:func:`cuda_time_ms` and :func:`device_ms_per_call` refuse CPU work.
+
+:func:`plain_version` marks a kernel's plain PyTorch version: each call is
+a ``plain_version:<name>`` range on the profiler's timeline, so a trace
+shows whether a plain version ran on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import pathlib
 import time
@@ -116,6 +122,71 @@ def cuda_time_ms(fn: Callable[[], object], device, iters: int = 10,
     return start.elapsed_time(end) / iters
 
 
+PLAIN_VERSION = "plain_version:"
+
+
+def plain_version(fn: Callable) -> Callable:
+    """Run ``fn`` inside a ``plain_version:<name>`` profiler range (a user
+    annotation on the timeline; ``chip_smoke.py`` reads the bench's traces
+    for it).  Attributes set on the returned function after decoration,
+    such as a call count, are the ones ``fn``'s body reads by its name."""
+    name = PLAIN_VERSION + fn.__name__
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+
+    return wrapped
+
+
+def _export(prof, log_dir, label: str = "trace") -> pathlib.Path:
+    out = pathlib.Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"{label}_{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    return path
+
+
+def device_ms_per_call(fn: Callable[[int], object], calls: int, device, *,
+                       trace_dir=None, label: str = "trace") -> dict:
+    """Device milliseconds per call of every kernel, copy and fill that
+    ``fn(0), ..., fn(calls - 1)`` put on the card, keyed by the profiler's
+    name for each (a kernel's symbol): ``torch.profiler``'s device events
+    over the calls, which end in a synchronize.
+
+    The twin of a wall time where CUDA events cannot stand in for device
+    time, because the host waits on the card within a call (K4's launch
+    reads the sphere table back: ``render/cuda_mesh.py::supports``).  With
+    ``trace_dir`` the timeline is also written there, as
+    ``<label>_<pid>_<ns>.json``.  Raises on a CPU device and when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"device time needs a CUDA device, not {device}")
+    if calls <= 0:
+        raise ValueError(f"calls must be positive, not {calls}")
+    synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        synchronize(device)
+    if trace_dir is not None:
+        _export(prof, trace_dir, label)
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3 / calls
+    if not any(out.values()):
+        raise RuntimeError("the profiler saw no device time (CUPTI tracing "
+                           "unavailable?)")
+    return out
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir):
     """``torch.profiler`` over the block (CPU activity, and CUDA activity
@@ -127,12 +198,10 @@ def profiler_trace(log_dir):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    out = pathlib.Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(log_dir).mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(
-        str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    _export(prof, log_dir)
 
 
 def measure_renderer(renderer, warmup: int = 1, iters: int = 5) -> RenderStats:
