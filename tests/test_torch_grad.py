@@ -10,7 +10,11 @@ where the two forwards agree on every rgb element to 1e-5 (a flipped branch
 shifts the sums by a whole path).  Both packages get the same numpy-made
 target and the same parameters, converted with ``interop``.  The Pallas
 kernel itself is not run here (interpret mode takes tens of seconds a
-call); K2 on the card is tested in tests/test_torch_cuda.py.
+call); K2 on the card is tested in tests/test_torch_cuda.py.  The four
+Pallas K2 runs of tests/test_pallas_grad.py are ``slow`` (the root
+conftest.py's ``SLOW``), outside tier-1, and run with
+``python -m pytest -m slow tests/test_pallas_grad.py``; this file's main,
+odd-size, camera and SGD cases hold the port to their contract in tier-1.
 """
 
 import numpy as np

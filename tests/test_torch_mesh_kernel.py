@@ -7,10 +7,14 @@ The scenes are those of tests/test_pallas_mesh.py at 32x32 (one at 64x64):
 the mesh in the Cornell box, the textured mesh under an HDRI, out-of-range
 uvs, the example sphere with a MERL table under an HDRI, and lobe MIS on
 the example sphere and on the mesh.  Inputs are made from a seed with numpy
-and handed to both packages.  Contract (tests/test_pallas_mesh.py:36-53):
+and handed to both packages.  Contract (tests/test_pallas_mesh.py::_compare):
 at most ``outlier_frac`` of the pixels (2%; 4-5% where MERL bin edges turn
 float noise into value jumps) differ by more than 1e-3, the others by 1e-4
-on average, and the depth likewise.  No Pallas kernel runs here.
+on average, and the depth likewise.  No Pallas kernel runs here: the
+Pallas K4 parity runs of tests/test_pallas_mesh.py are ``slow`` (the root
+conftest.py's ``SLOW``), outside tier-1, and run with
+``python -m pytest -m slow tests/test_pallas_mesh.py``; this file holds the
+port to their contract in tier-1.
 """
 
 import numpy as np
@@ -208,7 +212,8 @@ def test_layout_matches_jax(jmesh):
 
 def _scope_cases(jmesh):
     """(name, JAX scene, port scene, settings kwargs) of
-    tests/test_pallas_mesh.py:112-121,222-236."""
+    tests/test_pallas_mesh.py::test_supports_scope and
+    ::test_supports_rejects_out_of_scope_spheres."""
     base = dict(width=W, height=H, use_cornell_box=True, has_hdr=False,
                 has_mesh=True)
     jscene, scene = _pair(True, jmesh)
@@ -269,7 +274,8 @@ def test_render_pass_mesh_refuses_gradients_into_the_kernel(jmesh):
 def test_deferred_table_grads_match_xla(jmesh, name):
     """Gradients with respect to the HDRI and the diffuse map or the MERL
     table through ``compose`` alone, against ``jax.grad`` of the XLA
-    wavefront: tests/test_pallas_mesh.py:148-194's contract (loss to 1e-3
+    wavefront: the contract of tests/test_pallas_mesh.py::
+    test_deferred_table_grads_match_xla (loss to 1e-3
     relative; at most 2% of gradient entries off by more than 1e-3 of the
     gradient's scale)."""
     kw, jscene, scene, _ = _scene_case(name, jmesh)
