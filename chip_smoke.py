@@ -172,8 +172,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    depth bit-identical.
 31. The config-5 ``Renderer`` on the card against the CPU at 64x32 on a
    3,120-triangle sphere paged at 512.
-32. 2 warm and 5 timed ``Renderer`` passes at 1920x1080: K5 ``bounces``
-   times a pass, no plain search and no K3/K3b/K4; the image is FXAA of
+32. 2 warm and 5 timed ``Renderer`` passes at 1920x1080: K5 and K7
+   ``bounces`` times a pass (the K7 row's ``launches``), no plain search
+   and no K3/K3b/K4; the image is FXAA of
    the tonemapped accumulation, finite, the sphere hit at the centre.
 33. The gradient at spec with remat (MERL table and HDRI, the loss of
    ``examples/config5.py``): loss, wall time, peak memory; the same
@@ -276,8 +277,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain version's range (``utils/profiling.py::plain_version``); its
    headline twin (K2's device ms a step) within ``BENCH_TWIN_RTOL`` of
    phase 9's K2 row.
+51. K7, the bounce draws (``core/rng.py::bounce_uniforms``), at config 5's
+   width (1920x1080 at 8 spp, ``K7_LANES``) on random ids up to 2^32 - 1:
+   every word of 2 and 3 slots bit for bit the int64 path's, a launch a
+   call; K7 and the int64 path timed in turns (CUDA events) at each slot
+   count; K7's bound (``K7_SLOT_OPS``, 16 + 8 x slots bytes a lane).
 
-The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6) as
+The last lines are the kernel table (K1, K2, K3, K3b, K3c, K4, K5, K6, K7) as
 one JSON object, every row with its per-pipe and issue bounds and the
 bench keys that drive it (with the kernel's device ms in each of the
 bench's twins), and then ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -2429,12 +2435,14 @@ def sass_opcodes(lib):
 
 
 def config5_phases(dev, card, work_dir):
-    """Phases 27-36; returns the K5 and K6 rows of the kernel table."""
+    """Phases 27-36; returns the K5 and K6 rows of the kernel table and
+    phase 32's K7 launches."""
     from vrenderer_pathtracer_tpu_torch.accel import cuda_paged as k5
     from vrenderer_pathtracer_tpu_torch.accel import cuda_traverse as k3
     from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
     from vrenderer_pathtracer_tpu_torch.accel.mesh import pack_mesh
     from vrenderer_pathtracer_tpu_torch.accel.paged import pack_mesh_paged
+    from vrenderer_pathtracer_tpu_torch.core import rng
     from vrenderer_pathtracer_tpu_torch.kernels import build
     from vrenderer_pathtracer_tpu_torch.kernels import probe as k6
     from vrenderer_pathtracer_tpu_torch.native import load_mesh_file, load_obj
@@ -2592,8 +2600,10 @@ def config5_phases(dev, card, work_dir):
     _compare("config-5 scene, 3,120-triangle paged sphere, Renderer 64x32 "
              "cuda vs cpu", pair[0], pair[1])
 
-    # 32. Timed passes at spec: K5 `bounces` times a pass, no plain search.
+    # 32. Timed passes at spec: K5 and K7 `bounces` times a pass, no plain
+    # search.
     r.clear_buffer()
+    rng.bounce_uniforms.count = 0
     k5.launch_k5.count = k3.launch_k3.count = k3.launch_k3b.count = 0
     k4.launch_k4.count = 0
     trav.traverse.count = trav.traverse_paged_reference.count = 0
@@ -2604,9 +2614,10 @@ def config5_phases(dev, card, work_dir):
     for i in range(C5_PASSES):
         img, depth = r.render()
         assert k5.launch_k5.count == s.bounces * (C5_WARM + i + 1)
+        assert rng.bounce_uniforms.count == s.bounces * (C5_WARM + i + 1)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / C5_PASSES
-    k5_launches = k5.launch_k5.count
+    k5_launches, k7_launches = k5.launch_k5.count, rng.bounce_uniforms.count
     assert (k3.launch_k3.count == k3.launch_k3b.count == k4.launch_k4.count
             == trav.traverse.count == trav.traverse_paged_reference.count == 0)
     assert img.shape == (h, w, 3) and torch.isfinite(img).all()
@@ -2631,8 +2642,9 @@ def config5_phases(dev, card, work_dir):
           f"{rays / wall / 1e6:.1f} Mrays/s, hit pixels {hit_px:.3%}, image "
           f"mean {img.mean().item():.4f}, sphere centre "
           f"{centre.mean().item():.4f}, sky rows {sky_mean:.4f}, pixels FXAA "
-          f"moved {moved:.3%}, K5 launches {k5_launches} "
-          f"({C5_WARM + C5_PASSES} passes), plain searches 0, {card}")
+          f"moved {moved:.3%}, K5 launches {k5_launches}, K7 launches "
+          f"{k7_launches} ({C5_WARM + C5_PASSES} passes), plain searches 0, "
+          f"{card}")
 
     # 33. The gradient at spec with remat: MERL table and HDRI, against the
     # same scene packed single-level through the K3 wavefront.
@@ -2866,7 +2878,92 @@ def config5_phases(dev, card, work_dir):
         "bound_by": "operations",
         "bound_issue_ms": bf16_issue_ms,
         "library_ms": None,
-    }]
+    }], k7_launches
+
+# K7 (phase 51): the bounce draws at config 5's width, every lane of a
+# 1920x1080 pass at 8 spp (the compact waves draw on the hit lanes, at most
+# these).  Counted per pipe from the SASS of csrc/draws.cu (cuobjdump,
+# sm_90a).  Its slot loop, the 20-round threefry block with the slot's
+# counter word and to_unit, is 87 instructions: on the INT32 pipe 22 SHF
+# (20 funnel-shift rotates, to_unit's two shifts), 21 LOP3, 8 IADD3 and
+# the loop's VIADD and ISETP; 27 IMAD, adds and moves on the FMA pipe,
+# counted as FMAs (2 flops, one instruction); two I2FP conversions (SFU),
+# two FMUL scales, two stores and a branch.  The lane's part of the
+# grid-stride loop, which every slot shares (the loads, their addresses
+# and the key words), adds 19 INT32-pipe instructions and 11 IMAD.
+K7_LANES = 1920 * 1080 * 8
+K7_SLOT_OPS = {"fp32": 2 + 2 * 27, "sfu": 2, "int32": 53, "fma": 27}
+K7_LANE_OPS = {"fp32": 2 * 11, "int32": 19, "fma": 11}
+
+
+def k7_phase(dev, card, launches):
+    """Phase 51: K7 against the int64 path, bit for bit, and both timed
+    in turns at ``K7_LANES``.  Returns K7's row of the kernels line, with
+    ``launches``, phase 32's count on the config-5 render path."""
+    from vrenderer_pathtracer_tpu_torch.core import rng
+    from vrenderer_pathtracer_tpu_torch.utils.profiling import cuda_time_ms
+
+    g = torch.Generator(device=dev).manual_seed(51)
+    pix, samp = (torch.randint(0, 2 ** 32, (K7_LANES,), generator=g,
+                               device=dev, dtype=torch.int64) for _ in range(2))
+    seed, frame, bounce = 0x1234_5678_9ABC, 3, 1
+
+    def int64(n_slots):
+        return [u for slot in range(n_slots) for u in rng.uniform2(
+            seed, pix, rng.make_stream(frame, samp, bounce, slot))]
+
+    before = rng.bounce_uniforms.count
+    for n_slots in (2, 3):
+        got = rng.bounce_uniforms(seed, pix, samp, frame, bounce, n_slots)
+        torch.cuda.synchronize()
+        want = int64(n_slots)
+        assert len(got) == 2 * n_slots and all(
+            torch.equal(a, b) for a, b in zip(got, want)), n_slots
+        del got, want
+    assert rng.bounce_uniforms.count == before + 2
+    timed = {}
+    for n_slots in (2, 3):
+        timed[f"k7 {n_slots}"] = (lambda n=n_slots: rng.bounce_uniforms(
+            seed, pix, samp, frame, bounce, n), 20)
+        timed[f"int64 {n_slots}"] = (lambda n=n_slots: int64(n), 3)
+    t = {name: [] for name in timed}
+    for name in [*timed, *reversed(timed)]:
+        fn, iters = timed[name]
+        t[name].append(cuda_time_ms(fn, dev, iters=iters))
+    ms = {name: float(np.mean(v)) for name, v in t.items()}
+    bounds = {}
+    for n_slots in (2, 3):
+        ops = {k: (v * n_slots + K7_LANE_OPS.get(k, 0)) * K7_LANES
+               for k, v in K7_SLOT_OPS.items()}
+        bounds[n_slots] = bound(ops, K7_LANES * (16 + 8 * n_slots))
+        b_ms, by, i_ms = bounds[n_slots]
+        k7_ms, plain_ms = ms[f"k7 {n_slots}"], ms[f"int64 {n_slots}"]
+        print(f"K7 {n_slots} slots at {K7_LANES:,} lanes: "
+              f"{', '.join(f'{x:.4f}' for x in t[f'k7 {n_slots}'])} ms; "
+              f"int64 path {', '.join(f'{x:.3f}' for x in t[f'int64 {n_slots}'])}"
+              f" ms ({plain_ms / k7_ms:.0f}x); bound {b_ms:.4f} ms ({by}, "
+              f"{b_ms / k7_ms:.1%}), issue bound {i_ms:.4f} ms "
+              f"({i_ms / k7_ms:.1%}), {card}")
+    b_ms, by, i_ms = bounds[2]
+    return {
+        "name": "K7 bounce draws",
+        "route": "cuda",
+        "source": "vrenderer_pathtracer_tpu_torch/csrc/draws.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "lanes": K7_LANES,
+        "ms": ms["k7 2"],
+        "ms_3_slots": ms["k7 3"],
+        "plain_ms": ms["int64 2"],
+        "plain_ms_3_slots": ms["int64 3"],
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "bound_issue_ms": i_ms,
+        "bound_ms_3_slots": bounds[3][0],
+        "library_ms": None,
+    }
+
 
 # K3c and config 3 (phases 37-40).  K3c's contract against its plain
 # version (K3's traversal contract on slot and t, then the captured fields
@@ -4119,12 +4216,13 @@ def main() -> int:
         lambda st: st.n_pixels * st.samples_per_pass * st.bounces)
     work_dir = build.BUILD_DIR / "smoke"
     k4_row = k4_phases(dev, card, work_dir, str(work_dir / "nm_sphere.obj"))
-    c5_rows = config5_phases(dev, card, work_dir)
+    c5_rows, k7_launches = config5_phases(dev, card, work_dir)
     k3c_row = capture_phases(dev, card, str(work_dir / "nm_sphere.obj"))
     config3_cli_phase(dev, card)
     shards = shard_phases(dev, card, libs, work_dir)
     app_phases(dev, card, work_dir)
     bench_extra = bench_phase(card, work_dir, k2_ms)
+    k7_row = k7_phase(dev, card, k7_launches)
     k4_row["shards"] = shards["k4"]
     k4_row["train_params_hdr_grad"] = shards["train_hdr"]
 
@@ -4170,7 +4268,7 @@ def main() -> int:
         "bound_by": k2_bound[1],
         "bound_issue_ms": k2_bound[2],
         "library_ms": None,
-    }, *mesh_rows, k3c_row, k4_row, *c5_rows]
+    }, *mesh_rows, k3c_row, k4_row, *c5_rows, k7_row]
     print(json.dumps({"kernels": with_bench_keys(rows, bench_extra)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,10 @@ held to K3's contract against ``traverse_paged_reference`` and
 ``brute_force``; K6 to the plain chain at ``probe.CHECK_C``/``CHECK_A``,
 where the chain moves in both dtypes (float32 rtol 1e-4: the plain chain
 rounds product and sum apart, the kernel fuses them; bf16 bit-equal), and
-its planted no-op kernel must fail that check.
+its planted no-op kernel must fail that check.  ``records_reference``
+draws each bounce through K7 and its records are the int64 draws' bit for
+bit (K7's own tests are in tests/test_torch_rng.py and
+tests/test_torch_compact.py).
 """
 
 import tempfile
@@ -825,6 +828,30 @@ def test_k4_renderer_runs_k4_each_pass_and_matches_cpu(cuda, tmp_path):
     diff = np.abs(img - cimg)  # the golden image contract
     assert (diff > 1e-3).any(axis=-1).mean() <= 0.02 and diff.mean() <= 2e-3
     assert (np.abs(depth - cdepth) > 1e-3).mean() <= 0.02
+
+
+@pytest.mark.parametrize("kind", ["textured mesh", "mesh merl mis"])
+def test_k4_records_reference_draws_through_k7(cuda, tmp_path, monkeypatch,
+                                               kind):
+    """records_reference (K4's records mode on the card) draws each bounce
+    through K7, with the slot-2 draw under lobe MIS: its records are the
+    int64 draws' bit for bit."""
+    from vrenderer_pathtracer_tpu_torch.core import rng
+    from vrenderer_pathtracer_tpu_torch.render import cuda_mesh as k4
+
+    r = _k4_renderer(kind, cuda, tmp_path)
+    args = (r.scene, r.settings, r.camera, 3, r.fresnel_coef, r.fresnel_pow, 7)
+    launches = rng.bounce_uniforms.count
+    got = k4.records_reference(*args)
+    assert rng.bounce_uniforms.count == launches + r.settings.bounces
+
+    def int64_draws(seed, pix, samp, frame, bounce, n_slots):
+        assert n_slots == (3 if kind == "mesh merl mis" else 2)
+        return tuple(u for slot in range(n_slots) for u in rng.uniform2(
+            seed, pix, rng.make_stream(frame, samp, bounce, slot)))
+
+    monkeypatch.setattr(rng, "bounce_uniforms", int64_draws)
+    assert torch.equal(got, k4.records_reference(*args))
 
 
 def test_k4_refuses_inputs_that_require_grad(cuda, tmp_path):

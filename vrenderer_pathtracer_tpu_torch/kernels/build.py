@@ -32,8 +32,8 @@ import sys
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-KERNELS = ("radiance", "grad", "traverse", "mesh", "paged", "probe")
-# csrc/<name>.cu: K1, K2, K3 + K3b, K4, K5, K6
+KERNELS = ("radiance", "grad", "traverse", "mesh", "paged", "probe", "draws")
+# csrc/<name>.cu: K1, K2, K3 + K3b, K4, K5, K6, K7
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

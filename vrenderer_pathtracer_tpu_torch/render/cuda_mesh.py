@@ -250,16 +250,15 @@ def records_reference(scene: Scene, settings: RenderSettings, camera: Camera,
             rec[("E", b)] = torch.where(miss[:, None], m, torch.zeros_like(m))
             rec[("dir", b)] = d
 
-        u_reflect, _ = rng.uniform2(seed, ids, rng.make_stream(frame, sids, b, 0))
-        u_phi, u_r = rng.uniform2(seed, ids, rng.make_stream(frame, sids, b, 1))
+        u_reflect, _, u_phi, u_r, *u_b = rng.bounce_uniforms(
+            seed, ids, sids, frame, b, 3 if mis else 2)
         new_dir, mult = scatter(d, hd.normal, hd.tangent, hd.color,
                                 hd.spec_color, hd.hit_type, u_reflect, u_phi,
                                 u_r, fresnel_coef, fresnel_pow)
         is_brdf = hd.hit_type == BRDF
         if defer.merl:
             if mis:
-                u_b1, u_b2 = rng.uniform2(seed, ids,
-                                          rng.make_stream(frame, sids, b, 2))
+                u_b1, u_b2 = u_b
                 bdir, p_mix, cos_o = brdf_sampling.mis_direction(
                     sampler, d, hd.normal, new_dir, u_reflect, u_b1, u_b2, u_phi)
                 fac = torch.where(p_mix > 0.0, (1.0 / math.pi) * cos_o

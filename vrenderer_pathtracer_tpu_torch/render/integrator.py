@@ -211,14 +211,10 @@ def _shade(ctx: _Pass, hd: HitData, ray_o, ray_d, mask, alive, pix, samp,
     live_hit = alive & hd.hit
     lh = live_hit[:, None]
     emitted = torch.where(lh, mask * hd.emission, torch.zeros_like(mask))
-    u_reflect, _ = rng.uniform2(
-        ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 0))
-    u_phi, u_r = rng.uniform2(
-        ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 1))
-    u_b1 = u_b2 = None
-    if ctx.brdf_sampler is not None:
-        u_b1, u_b2 = rng.uniform2(
-            ctx.seed, pix, rng.make_stream(ctx.frame, samp, bounce, 2))
+    mis = ctx.brdf_sampler is not None
+    u_reflect, _, u_phi, u_r, *u_b = rng.bounce_uniforms(
+        ctx.seed, pix, samp, ctx.frame, bounce, 3 if mis else 2)
+    u_b1, u_b2 = u_b if mis else (None, None)
     new_dir, mult = scatter(
         ray_d, hd.normal, hd.tangent, hd.color, hd.spec_color, hd.hit_type,
         u_reflect, u_phi, u_r, ctx.fresnel_coef, ctx.fresnel_pow,
