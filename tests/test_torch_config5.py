@@ -36,10 +36,9 @@ from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set as j_spheres
 import vrenderer_pathtracer_tpu_torch as vpt
 from vrenderer_pathtracer_tpu_torch.accel import traverse as trav
 from vrenderer_pathtracer_tpu_torch.accel.paged import pack_mesh_paged
-from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
+from vrenderer_pathtracer_tpu_torch.examples.config5 import env_material_grads
 from vrenderer_pathtracer_tpu_torch.native import load_obj
 from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE
-from vrenderer_pathtracer_tpu_torch.render import integrator
 
 W, H, Z = 48, 32, 40.0
 GRAD_REL_L2, GRAD_TIGHT_FRAC = 5e-3, 0.995
@@ -123,20 +122,15 @@ def test_config5_scene_resolves_and_renders_like_jax(assets, port):
 
 def test_config5_gradients_match_jax(assets, port):
     """Loss and gradients with respect to the MERL table and the HDRI
-    (examples/config5.py's gradient, through remat and the compact chain)
-    against jax.value_and_grad of the single-level XLA pass."""
+    (examples/config5.py's gradient: deferred_opt_step's loss, through
+    remat and the compact chain) against jax.value_and_grad of the
+    single-level XLA pass."""
     s = port.settings.replace(use_fxaa=False)
     rng = np.random.default_rng(5)
     target = rng.uniform(0, 1, (W * H, 3)).astype(np.float32)
-    scene = port.scene
-    hdr = scene.hdr.clone().requires_grad_()
-    brdf = scene.brdf.clone().requires_grad_()
-    o, d = generate_rays(port.camera, W, H)
-    rgb, _ = integrator.render_pass(scene.replace(hdr=hdr, brdf=brdf), s, o, d,
-                                    pixel_ids(W, H, "cpu"), 1,
-                                    port.fresnel_coef, port.fresnel_pow)
-    loss = torch.mean((rgb - torch.tensor(target)) ** 2)
-    g_brdf, g_hdr = torch.autograd.grad(loss, (brdf, hdr))
+    loss, g_brdf, g_hdr = env_material_grads(
+        port.scene, s, port.camera, torch.tensor(target), port.fresnel_coef,
+        port.fresnel_pow)
 
     js, jscene = _jax_settings(), _jax_scene(assets)
     jo, jd, ids = _jax_rays()

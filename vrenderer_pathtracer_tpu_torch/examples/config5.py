@@ -6,7 +6,7 @@ K5 (``csrc/paged.cu``) in the wavefront integrator with compact bounce
 waves; the EXR environment light, measured-BRDF shading, the FXAA display
 pass and progressive accumulation with checkpointing; then one gradient of
 the L2 loss of a pass with respect to the MERL table and the HDRI, by
-autograd through ``integrator.render_pass`` with bounce remat
+autograd through ``deferred_opt_step``'s loss with bounce remat
 (``torch.utils.checkpoint``) bounding the backward pass's memory.  With
 ``--cpu`` the same path runs the plain paged search.
 
@@ -63,24 +63,22 @@ def synth_assets(tmp, n_theta=500):
 def env_material_grads(scene, settings, camera, target, fresnel_coef,
                        fresnel_pow):
     """``(loss, d loss / d brdf, d loss / d hdr)`` of one pass at frame 1:
-    the mean squared error of the pass's rgb [N,3] against ``target``,
-    through ``integrator.render_pass`` on ``settings`` (its traversal,
-    compact waves and remat as resolved)."""
+    ``deferred_opt_step``'s loss (``parallel/sharding.py::_deferred_loss``,
+    the mean squared error of the pass's rgb [N,3] against ``target``) with
+    the MERL table and the HDRI as ``DeferredParams``, on ``settings`` (its
+    traversal, compact waves and remat as resolved)."""
     import torch
 
-    from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
-    from vrenderer_pathtracer_tpu_torch.render import integrator
+    from vrenderer_pathtracer_tpu_torch.parallel.sharding import (
+        DeferredParams, _deferred_loss)
 
-    brdf = scene.brdf.detach().clone().requires_grad_()
-    hdr = scene.hdr.detach().clone().requires_grad_()
-    ray_o, ray_d = generate_rays(camera, settings.width, settings.height)
-    ids = pixel_ids(settings.width, settings.height, ray_o.device)
+    params = DeferredParams.from_scene(scene, hdr=True, brdf=True)
+    for t in params.leaves():
+        t.requires_grad_()
     with torch.enable_grad():
-        rgb, _ = integrator.render_pass(scene.replace(brdf=brdf, hdr=hdr),
-                                        settings, ray_o, ray_d, ids, 1,
-                                        fresnel_coef, fresnel_pow)
-        loss = torch.mean((rgb - target) ** 2)
-        g_brdf, g_hdr = torch.autograd.grad(loss, (brdf, hdr))
+        loss = _deferred_loss(params, scene, settings, camera, target, 1,
+                              fresnel_coef, fresnel_pow, 0)
+        g_hdr, g_brdf = torch.autograd.grad(loss, params.leaves())
     return loss.detach(), g_brdf, g_hdr
 
 

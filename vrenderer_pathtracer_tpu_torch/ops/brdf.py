@@ -14,7 +14,9 @@ Rusinkiewicz half/diff parameterisation:
 Table layout: ``[3, 90*90*180]`` channels-major, index
 ``phi_d + theta_d*180 + theta_h*180*90``, the MERL binary's after the loader
 splits channels.  ``lookup_brdf`` is differentiable with respect to the
-table (the gather's backward is a scatter-add).  K4 (``csrc/mesh.cu``)
+table (the gather's backward is a scatter-add); ``lookup_brdf.grad_lanes``
+counts the lanes it gathers for a gradient
+(``utils/profiling.py::count_grad_lanes``).  K4 (``csrc/mesh.cu``)
 computes the same index with libdevice ``acosf``/``atan2f``.
 """
 
@@ -24,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from vrenderer_pathtracer_tpu_torch.utils.profiling import count_grad_lanes
 
 RES_THETA_H = 90
 RES_THETA_D = 90
@@ -92,4 +96,8 @@ def channel_scale(like: torch.Tensor) -> torch.Tensor:
 def lookup_brdf(table, out_dir, in_dir, normal, tangent):
     """RGB BRDF values, scaled per channel: table [3, TABLE_SIZE] -> [B,3]."""
     ind = merl_index(out_dir, in_dir, normal, tangent)
+    count_grad_lanes(lookup_brdf, table, ind.shape[0])
     return table[:, ind].T * channel_scale(table)[None, :]
+
+
+lookup_brdf.grad_lanes = 0

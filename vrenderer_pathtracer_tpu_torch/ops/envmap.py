@@ -3,7 +3,10 @@
 The miss shader: ``u = atan2(d.x, d.z)`` wrapped to [0, 2pi) then / 2pi;
 ``v = acos(d.y) / pi``; a nearest-texel fetch with a flat-index clamp; the
 contribution is ``mask * 2 * hdr[addr]``.  ``sample_env_bilinear`` is smooth
-in direction too, for optimising the map.
+in direction too, for optimising the map.  :func:`sample_env`, the fetch the
+integrators call, picks one by the texture filter; ``sample_env.grad_lanes``
+counts the lanes it fetches for a gradient
+(``utils/profiling.py::count_grad_lanes``).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from vrenderer_pathtracer_tpu_torch.utils.profiling import count_grad_lanes
 
 ENV_SCALE = 2.0  # the reference multiplies HDR radiance by 2
 
@@ -55,3 +60,14 @@ def sample_env_bilinear(hdr, ray_d):
     top = c00 * (1 - wx) + c10 * wx
     bot = c01 * (1 - wx) + c11 * wx
     return (top * (1 - wy) + bot * wy) * ENV_SCALE
+
+
+def sample_env(hdr, ray_d, bilinear: bool = False):
+    """The HDRI fetch of a miss: :func:`sample_env_bilinear` or
+    :func:`sample_env_nearest`."""
+    count_grad_lanes(sample_env, hdr, ray_d.shape[0])
+    fetch = sample_env_bilinear if bilinear else sample_env_nearest
+    return fetch(hdr, ray_d)
+
+
+sample_env.grad_lanes = 0

@@ -437,16 +437,24 @@ def _sgd(params, loss_fn, lr, with_metrics, mesh=None, sh=None):
 
 def _optimise(optimizer, params, loss_fn, mesh=None, sh=None):
     """Zero the optimiser's gradients, run ``loss_fn(params)`` backward
-    (each gradient reduced over ``mesh`` in the backward pass), step."""
+    (each gradient reduced over ``mesh`` in the backward pass), step.
+
+    The phases are ``torch.profiler`` ranges: ``opt.loss`` (the forward
+    render and the loss), ``opt.backward`` and ``opt.update`` (the
+    optimiser's step)."""
+    record = torch.profiler.record_function
     optimizer.zero_grad(set_to_none=True)
     with torch.enable_grad():
         p = params if mesh is None else allreduce_grads_in_bwd(params, mesh)
-        loss = loss_fn(p)
-        loss.backward()
+        with record("opt.loss"):
+            loss = loss_fn(p)
+        with record("opt.backward"):
+            loss.backward()
     grads = [t.grad for t in params.leaves() if t.grad is not None]
     metrics = {"loss": _tile_sum(loss.detach(), sh),
                "grad_global_norm": _global_norm(grads)}
-    optimizer.step()
+    with record("opt.update"):
+        optimizer.step()
     return params, metrics
 
 

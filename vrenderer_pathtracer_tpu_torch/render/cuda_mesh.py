@@ -65,8 +65,7 @@ from vrenderer_pathtracer_tpu_torch.core.camera import Camera, generate_rays, pi
 from vrenderer_pathtracer_tpu_torch.ops import brdf_sampling
 from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
 from vrenderer_pathtracer_tpu_torch.ops.brdf import TABLE_SIZE, channel_scale, merl_index
-from vrenderer_pathtracer_tpu_torch.ops.envmap import (
-    sample_env_bilinear, sample_env_nearest)
+from vrenderer_pathtracer_tpu_torch.ops.envmap import sample_env
 from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
 from vrenderer_pathtracer_tpu_torch.render import integrator
 from vrenderer_pathtracer_tpu_torch.render.cuda_radiance import (
@@ -551,7 +550,6 @@ def compose(records: torch.Tensor, scene: Scene, settings: RenderSettings):
         return field(("rgb",), 3), depth
     bilinear = settings.texture_filter == "bilinear"
     fetch = tex_ops.fetch_bilinear if bilinear else tex_ops.fetch_nearest
-    env_fetch = sample_env_bilinear if bilinear else sample_env_nearest
     n = records.shape[1]
     ones = torch.ones((n, 3), dtype=records.dtype, device=records.device)
     total = torch.zeros_like(ones)
@@ -592,7 +590,7 @@ def compose(records: torch.Tensor, scene: Scene, settings: RenderSettings):
             # the guard keeps a non-finite HDR texel out of it (0 * inf).
             ever_missed = torch.any(env_w != 0.0, dim=-1, keepdim=True)
             total = total + torch.where(
-                ever_missed, env_w * env_fetch(scene.hdr, env_dir),
+                ever_missed, env_w * sample_env(scene.hdr, env_dir, bilinear),
                 torch.zeros_like(env_w))
     total = total / settings.samples_per_pass
     if not defer.emit:

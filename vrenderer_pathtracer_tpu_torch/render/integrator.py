@@ -42,8 +42,7 @@ from vrenderer_pathtracer_tpu_torch.config import RenderSettings
 from vrenderer_pathtracer_tpu_torch.core import rng
 from vrenderer_pathtracer_tpu_torch.core.camera import generate_rays, pixel_ids
 from vrenderer_pathtracer_tpu_torch.ops import texture as tex_ops
-from vrenderer_pathtracer_tpu_torch.ops.envmap import (
-    sample_env_bilinear, sample_env_nearest)
+from vrenderer_pathtracer_tpu_torch.ops.envmap import sample_env
 from vrenderer_pathtracer_tpu_torch.ops.intersect import INF, intersect_spheres
 from vrenderer_pathtracer_tpu_torch.ops.shading import ORIGIN_OFFSET, scatter
 from vrenderer_pathtracer_tpu_torch.scene.scene import Scene
@@ -263,12 +262,10 @@ def _env_term(ctx: _Pass, env_w, env_dir):
     ever missed.  Paths that never missed carry env_w = 0 and a stale
     direction; an HDR asset may hold inf/NaN texels, and 0 * inf would
     poison them."""
-    env_fetch = (sample_env_bilinear
-                 if ctx.settings.texture_filter == "bilinear"
-                 else sample_env_nearest)
     ever_missed = torch.any(env_w != 0.0, dim=-1, keepdim=True)
-    return torch.where(ever_missed, env_w * env_fetch(ctx.scene.hdr, env_dir),
-                       torch.zeros_like(env_w))
+    fetched = sample_env(ctx.scene.hdr, env_dir,
+                         ctx.settings.texture_filter == "bilinear")
+    return torch.where(ever_missed, env_w * fetched, torch.zeros_like(env_w))
 
 
 def _stepper(settings: RenderSettings):

@@ -12,6 +12,11 @@ them is a device number when the work ran on the CPU, and
 :func:`plain_version` marks a kernel's plain PyTorch version: each call is
 a ``plain_version:<name>`` range on the profiler's timeline, so a trace
 shows whether a plain version ran on the card.
+
+:func:`count_grad_lanes` keeps the table gathers' counters
+(``ops/brdf.py::lookup_brdf.grad_lanes``,
+``ops/envmap.py::sample_env.grad_lanes``): the lanes whose gradient a
+backward pass scatters into a trained table, from shapes alone.
 """
 
 from __future__ import annotations
@@ -138,6 +143,18 @@ def plain_version(fn: Callable) -> Callable:
             return fn(*args, **kw)
 
     return wrapped
+
+
+def count_grad_lanes(fn: Callable, table: torch.Tensor, lanes: int) -> None:
+    """Add ``lanes`` to ``fn.grad_lanes`` when a forward pass gathers them
+    from ``table`` for a gradient: grad mode on and ``table`` requiring
+    grad, outside a backward pass, whose remat recompute
+    (``torch.utils.checkpoint``) gathers the same lanes again.  The count is
+    then the lanes whose gradient the backward pass scatters into the
+    table.  It reads a shape the host holds: no sync."""
+    if (lanes and table.requires_grad and torch.is_grad_enabled()
+            and torch._C._current_graph_task_id() == -1):
+        fn.grad_lanes += lanes
 
 
 def _export(prof, log_dir, label: str = "trace") -> pathlib.Path:
